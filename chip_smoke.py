@@ -5,33 +5,61 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device   the card's name and power limit; TF32 off for matmuls and cuDNN.
-2. build    the attention kernel's CUDA source with nvcc into
-            build/repro_torch/, timed.
+2. build    the kernels' CUDA sources with nvcc into build/repro_torch/, one
+            nvcc per source, all started together, timed.
 3. kernels  each kernel against its plain PyTorch version on the card, at the
-            shapes the main path gives it. Times: the kernel's own device time
-            (its two launches, pass A + pass B, from torch.profiler), the
-            wrapper's per-call time (CUDA events around back-to-back calls,
-            host work included), the plain version's device and per-call
-            times, and the bound (bytes over 3.35 TB/s, int8 operations over
-            1979 TOP/s). The kernels line reports the device times.
+            shapes the main paths give it, in the three softmax modes: the
+            paged kernel (pass_a + pass_b), the contiguous two-pass kernel
+            (contiguous_sums + contiguous_probv) and the one-tile kernel
+            (single_tile); out32 and cmax must be equal. Times, all by CUDA
+            events: the device time of the kernel's launch function and of
+            the plain version (`device_ms`: a spin kernel holds the stream
+            while the host enqueues the calls, so host gaps do not count),
+            the wrapper's and the plain version's per-call times
+            (back-to-back calls, host work included), and the bound (bytes
+            over 3.35 TB/s, int8 operations over 1979 TOP/s). The kernels
+            line reports the device times.
 4. main     gpt2-large at its published width (36 layers, d 1280, 20 heads,
             vocab 50257, random weights from a seed, resident int8) served by
             the paged continuous batcher: 8 slots, 64-token pages and chunks,
             16 requests of 64..512 prompt tokens and 32 new tokens each. The
-            attention launch count must be 2 x 36 x (chunk calls + decode
-            steps): every model call went through the kernel.
-   profile  the same 16 requests served again under torch.profiler: device
-            time by kernel over every model call of the trace, and the
-            card's idle share (1 - device busy time / wall time).
-5. agree    the same path at 4 layers with the kernel swapped for its plain
+            paged launch count must be 2 x 36 x (chunk calls + decode steps).
+   profile  phase 4's trace served again under torch.profiler: device
+            time by kernel over every model call, and the card's idle share
+            (1 - device busy time / wall time). torch.profiler can drop
+            launches; a trace whose attention launches differ from the
+            counters' is taken again once, and if it is short again the
+            phase reports its numbers as not measured.
+5. agree    the paged path at 4 layers with the kernel swapped for its plain
             version gives the same tokens.
+6. bucketed gpt2-large as in phase 4 served by BatchScheduler in left-padded
+            buckets of 4 on the contiguous KV cache (max_len 512): 16
+            requests of 64..448 prompt tokens and 32 new tokens. The
+            contiguous launch count must be 2 x 36 x (prefills + decode
+            steps).
+7. solo     command-r-35b at its published width (d 8192, 64 heads, 8 KV
+            heads, head_dim 128, d_ff 22528, vocab 256000) cut to 8 of its 40
+            layers (float32 init of all 40 is about 113 GB), resident int8
+            from a seed, GenerationEngine.generate on 4 prompts of 64..256
+            tokens one at a time, 32 new tokens, max_len 512. Every decode
+            step must launch the one-tile kernel once per layer and every
+            prefill the two-pass kernel twice per layer.
+   profile  the first bucket of phase 6 and the first prompt of phase 7
+            served again under torch.profiler: device time by kernel, idle
+            share, the attention kernels' share (taken again once, as the
+            phase-4 profile, when the profiler drops launches).
+8. agree    the bucketed path at 4 layers and the solo path at 2 layers with
+            the contiguous and one-tile kernels swapped for their plain
+            versions give the same tokens.
 
 The line before the last is one JSON object describing every kernel; the
 last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -70,14 +98,29 @@ def kernel_table(prof) -> list:
     return sorted(rows, key=lambda r: -r[1])
 
 
-def is_attention_kernel(name: str) -> bool:
-    return "pass_a" in name or "pass_b" in name
+# the device kernels of each attention kernel, as torch.profiler names them
+KERNEL_NAMES = {"acam_attention_paged": ("pass_a", "pass_b"),
+                "acam_attention": ("contiguous_sums", "contiguous_probv"),
+                "acam_attention_single": ("single_tile",)}
+KERNEL_SOURCES = {"acam_attention_paged": "acam_attention",
+                  "acam_attention": "acam_attention",
+                  "acam_attention_single": "acam_attention_single"}
+
+
+def kernel_of(name: str):
+    """Which attention kernel a profiler row belongs to, or None."""
+    for kernel, parts in KERNEL_NAMES.items():
+        if any(re.search(rf"(^|[^\w]){part}($|[^\w])", name)
+               for part in parts):
+            return kernel
+    return None
 
 
 def profiled(fn, warm) -> tuple[list, float]:
     """One run of ``fn()`` under torch.profiler (CUPTI), after a warm-up step
     of the profiler itself that runs ``warm()`` and is not recorded.
-    Returns (kernel_table rows, wall seconds of ``fn()``)."""
+    Returns (kernel_table rows, wall seconds of ``fn()``); the rows may miss
+    launches, or be empty, when CUPTI drops records."""
     from torch.profiler import ProfilerActivity, profile, schedule
     with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1,
@@ -90,9 +133,76 @@ def profiled(fn, warm) -> tuple[list, float]:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         prof.step()
-    rows = kernel_table(prof)
-    check(bool(rows), "torch.profiler recorded no device activity")
-    return rows, wall
+    return kernel_table(prof), wall
+
+
+def launches_seen(rows) -> tuple[dict, dict]:
+    """Launches and device ms of each attention kernel in profiler rows."""
+    seen = {k: 0 for k in KERNEL_NAMES}
+    ms = {k: 0.0 for k in KERNEL_NAMES}
+    for name, t, n in rows:
+        k = kernel_of(name)
+        if k is not None:
+            seen[k] += n
+            ms[k] += t
+    return seen, ms
+
+
+def profiled_complete(fn, warm, expect: dict, tries: int = 2):
+    """``profiled(fn, warm)`` until the profiler sees exactly the ``expect``
+    launches of each attention kernel, at most ``tries`` times. Returns
+    (rows, wall, seen launches, complete)."""
+    for _ in range(tries):
+        rows, wall = profiled(fn, warm)
+        seen = launches_seen(rows)[0]
+        if seen == expect:
+            return rows, wall, seen, True
+    return rows, wall, seen, False
+
+
+@functools.cache
+def spin_cycles_per_ms() -> float:
+    """Clock cycles of ``torch.cuda._sleep`` per millisecond on this card."""
+    torch.cuda._sleep(1000)
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    torch.cuda._sleep(10 ** 7)
+    b.record()
+    torch.cuda.synchronize()
+    return 1e7 / a.elapsed_time(b)
+
+
+def device_ms(fn, iters: int, reps: int = 1) -> tuple[float, bool]:
+    """Mean device milliseconds of one ``fn()``, by CUDA events with host
+    gaps excluded: a spin kernel holds the stream while the host enqueues
+    ``iters`` calls, which the card then runs back to back; ``reps`` such
+    windows. Also returns whether the host had enqueued every call before
+    the hold ended, in every window; if not (a call that waits for the
+    card, or more launches than the launch queue takes), host time is in
+    the number."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    hold_ms = 2e3 * (time.perf_counter() - t0) + 5.0
+    total, host_free = 0.0, True
+    for _ in range(reps):
+        held, start, end = (torch.cuda.Event(enable_timing=True)
+                            for _ in range(3))
+        t0 = time.perf_counter()
+        held.record()
+        torch.cuda._sleep(int(hold_ms * spin_cycles_per_ms()))
+        start.record()
+        for _ in range(iters):
+            fn()
+        enqueue_ms = 1e3 * (time.perf_counter() - t0)
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+        host_free = host_free and enqueue_ms < held.elapsed_time(start)
+    return total / (reps * iters), host_free
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -157,42 +267,145 @@ def attention_bound_ms(c) -> tuple[float, str]:
             else "operations")
 
 
+def contiguous_case(name, *, G, sq, sk, d, mode, kv_len=None, causal=False,
+                    pad=None, heads=1, device="cuda", seed=SEED):
+    """Int8 operands of one contiguous call at a main-path shape. ``pad``
+    (B,) left-pad lengths give one mask row per batch row of ``heads``
+    groups (causal on top when ``causal``); else ``causal`` is in-kernel."""
+    gen = np.random.default_rng(seed)
+    q = gen.integers(-128, 128, (G, sq, d), dtype=np.int8)
+    k = gen.integers(-128, 128, (G, sk, d), dtype=np.int8)
+    v = gen.integers(-128, 128, (G, sk, d), dtype=np.int8)
+    s1 = np.float32(4.0 / (np.sqrt(d) * 128 * 128 / 3))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    mask = None
+    if pad is not None:
+        cols = np.arange(sk)[None, None, :]
+        m = np.broadcast_to(cols >= np.asarray(pad)[:, None, None],
+                            (len(pad), sq, sk))
+        if causal:
+            m = m & (cols <= np.arange(sq)[None, :, None] + (sk - sq))
+        mask = t(np.array(m))  # a writable copy of the broadcast
+        causal = False
+    lens = np.full(G, sk if kv_len is None else kv_len, np.int32)
+    return dict(name=name, mode=mode, q=t(q), k=t(k), v=t(v),
+                s1=torch.tensor(s1, device=device), mask=mask,
+                kv_len=None if kv_len is None else torch.tensor(
+                    kv_len, dtype=torch.int32, device=device),
+                lens=t(lens), causal=causal, heads=heads)
+
+
+def contiguous_bound_ms(c) -> tuple[float, str]:
+    """Least time for a contiguous call: q, K and V of the live keys, the
+    mask and the int32 output moved once; q.K over the pairs that are not
+    masked (a masked key skips its product) and PROB.V over the live keys,
+    a multiply and an add each, at the int8 peak."""
+    G, sq, d = c["q"].shape
+    lens = c["lens"].long()
+    live = int(lens.sum())
+    nbytes = c["q"].numel() + 2 * live * d + 4 * G * sq * d + 4 * G
+    sk = c["k"].shape[1]
+    kpos = torch.arange(sk, device=lens.device)
+    valid = kpos[None, None, :] < lens[:, None, None]          # (G, 1, Sk)
+    if c["mask"] is not None:
+        nbytes += c["mask"].numel()
+        g = torch.arange(G, device=lens.device)
+        m = c["mask"][g // (G // c["mask"].shape[0])] != 0
+        pairs = int((m & valid).sum())
+    elif c["causal"]:
+        rows = torch.arange(sq, device=lens.device)
+        pairs = int(((kpos[None, :] <= rows[:, None])[None] & valid).sum())
+    else:
+        pairs = live * sq
+    ops = 2 * d * (pairs + sq * live)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations")
+
+
 def check_attention_case(c):
+    """The paged kernel against its plain version on one case."""
     from repro_torch.kernels import acam_attention as A
     args = (c["q"], c["k"], c["v"], c["s1"], c["mask"])
     kw = dict(kv_len=c["kv_len"], mode=c["mode"], block_table=c["bt"],
               page_size=c["page_size"], groups_per_slot=c["gps"])
+    kv = torch.clamp(c["kv_len"], max=c["bt"].shape[1] * c["page_size"])
     plain = lambda: A.acam_attention_codes_plain(
-        *args, torch.clamp(c["kv_len"], max=c["bt"].shape[1] * c["page_size"]),
-        c["mode"], c["bt"], c["page_size"], c["gps"])
+        *args, kv, c["mode"], c["bt"], c["page_size"], c["gps"])
     kernel = lambda: A.acam_attention_codes(*args, **kw)
+    mask8 = None if c["mask"] is None else c["mask"].to(torch.int8)
+    launch = lambda: A._launch_paged(
+        c["q"], c["k"], c["v"], c["s1"], mask8, kv, c["mode"], c["bt"],
+        c["page_size"], c["gps"], None)
+    bound_ms, bound_by = attention_bound_ms(c)
+    return compare_and_time("acam_attention_paged", 2, kernel, launch, plain,
+                            bound_ms, bound_by)
+
+
+def check_contiguous_case(c):
+    """The contiguous two-pass or the one-tile kernel against its plain
+    version on one case; the wrapper's shape rule picks the kernel."""
+    from repro_torch.kernels import acam_attention as A
+    G, sq, _ = c["q"].shape
+    single = A.one_tile(G, sq, c["k"].shape[1])
+    args = (c["q"], c["k"], c["v"], c["s1"], c["mask"])
+    plain_fn = (A.acam_attention_single_plain if single
+                else A.acam_attention_contiguous_plain)
+    plain = lambda: plain_fn(*args, c["lens"], False, c["mode"], None, 0,
+                             c["causal"])
+    kernel = lambda: A.acam_attention_codes(
+        *args, kv_len=c["kv_len"], mode=c["mode"], causal=c["causal"])
+    launch_fn = A._launch_single if single else A._launch_contiguous
+    mask8 = None if c["mask"] is None else c["mask"].to(torch.int8)
+    launch = lambda: launch_fn(c["q"], c["k"], c["v"], c["s1"], mask8,
+                               c["lens"], False, c["mode"], None, 0,
+                               c["causal"])
+    bound_ms, bound_by = contiguous_bound_ms(c)
+    name = "acam_attention_single" if single else "acam_attention"
+    return compare_and_time(name, 1 if single else 2, kernel, launch, plain,
+                            bound_ms, bound_by)
+
+
+def compare_and_time(kernel_name, launches_per_call, kernel, launch, plain,
+                     bound_ms, bound_by):
+    """``kernel()`` (the wrapper) against ``plain()`` bit for bit, and the
+    times of ``launch()``, the wrapper's launch function on the operands
+    the wrapper would pass it (the kernel's launches and its one-word cell
+    fills), of the wrapper and of the plain version."""
+    from repro_torch.kernels import acam_attention as A
+    before = A.launches[kernel_name]
     out_k, cmax_k = kernel()
+    check(A.launches[kernel_name] == before + launches_per_call,
+          f"{kernel_name} was not the kernel launched")
     out_p, cmax_p = plain()
+    out_l, cmax_l = launch()
     torch.cuda.synchronize()
     check(int(cmax_k) == int(cmax_p),
-          f"{c['name']}: cmax {int(cmax_k)} != plain {int(cmax_p)}")
+          f"{kernel_name}: cmax {int(cmax_k)} != plain {int(cmax_p)}")
     diff = (out_k.long() - out_p.long()).abs().max().item()
-    if diff:
-        # the float contract: |d out| * p_scale <= PROB ulp * max|v| codes
-        p_scale = float(A.requant_scale(cmax_p))
-        check(diff * p_scale <= 2.0 ** -8 * 127,
-              f"{c['name']}: out32 differs by {diff}")
-    # the kernel's own time: the mean device time of a pass A launch plus
-    # that of a pass B launch, each over the launches the profiler saw
-    rows, _ = profiled(lambda: [kernel() for _ in range(20)], kernel)
-    passes = [r for r in rows if is_attention_kernel(r[0])]
-    check(len(passes) == 2, f"profiler saw {[r[0] for r in passes]}")
-    ms = sum(r[1] / r[2] for r in passes)
-    seen = sum(r[2] for r in passes)
+    check(diff == 0, f"{kernel_name}: out32 differs from plain by {diff}")
+    check(int(cmax_l) == int(cmax_k) and torch.equal(out_l, out_k),
+          f"{kernel_name}: the launch function differs from the wrapper")
+    ms, host_free = device_ms(launch, 20)
     wrapper_ms = cuda_ms(kernel, 20)
-    rows, _ = profiled(lambda: [plain() for _ in range(3)], plain)
-    plain_ms = sum(r[1] for r in rows) / 3
+    plain_ms, plain_host_free = device_ms(plain, 1, reps=3)
     plain_call_ms = cuda_ms(plain, 3, warmup=1)
-    bound_ms, bound_by = attention_bound_ms(c)
-    return dict(max_abs_err=float(diff), ms=ms, profiled_launches=seen,
-                wrapper_ms=wrapper_ms,
-                plain_ms=plain_ms, plain_call_ms=plain_call_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    return dict(kernel=kernel_name, max_abs_err=float(diff), ms=ms,
+                ms_host_free=host_free, wrapper_ms=wrapper_ms,
+                plain_ms=plain_ms, plain_host_free=plain_host_free,
+                plain_call_ms=plain_call_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def report_case(name, r, device_desc):
+    gaps = lambda ok: "" if ok else ", host gaps included"
+    print(f"[kernels] {name} ({r['kernel']}): out32 and cmax equal to plain; "
+          f"kernel device {r['ms']:.4f} ms (CUDA events{gaps(r['ms_host_free'])}"
+          f"; wrapper call {r['wrapper_ms']:.4f} ms), plain device "
+          f"{r['plain_ms']:.3f} ms{gaps(r['plain_host_free'])} (call "
+          f"{r['plain_call_ms']:.3f} ms), bound {1e3 * r['bound_ms']:.3f} us "
+          f"({r['bound_by']}); no library call computes this integer LUT "
+          f"pipeline ({device_desc})", flush=True)
 
 
 def phase_kernels(device_desc: str) -> list:
@@ -217,15 +430,27 @@ def phase_kernels(device_desc: str) -> list:
         ]
         for c in cases:
             r = check_attention_case(c)
-            print(f"[kernels] {c['name']}: max|out - plain| = "
-                  f"{r['max_abs_err']:g}, cmax equal; kernel device "
-                  f"{r['ms']:.4f} ms ({r['profiled_launches']} of 40 launches "
-                  f"profiled; wrapper call {r['wrapper_ms']:.4f} ms), "
-                  f"plain device {r['plain_ms']:.3f} ms (call "
-                  f"{r['plain_call_ms']:.3f} ms), bound "
-                  f"{1e3 * r['bound_ms']:.3f} us ({r['bound_by']}); no library "
-                  f"call computes this integer LUT pipeline ({device_desc})",
-                  flush=True)
+            report_case(c["name"], r, device_desc)
+            rows.append(dict(case=c["name"], **r))
+        pads = gen.integers(0, 200, 4)
+        pads[int(gen.integers(0, 4))] = 0  # the bucket's longest prompt
+        contiguous = [
+            contiguous_case(f"gpt2-large bucket decode {mode}", G=80, sq=1,
+                            sk=512, d=64, mode=mode, heads=20,
+                            kv_len=int(gen.integers(449, 481)),
+                            pad=np.minimum(pads, 100)),
+            contiguous_case(f"gpt2-large bucket prefill {mode}", G=80,
+                            sq=448, sk=448, d=64, mode=mode, heads=20,
+                            causal=True, pad=pads),
+            contiguous_case(f"command-r prefill {mode}", G=64, sq=256,
+                            sk=256, d=128, mode=mode, causal=True),
+            contiguous_case(f"command-r solo gqa decode {mode}", G=8, sq=8,
+                            sk=512, d=128, mode=mode,
+                            kv_len=int(gen.integers(65, 289))),
+        ]
+        for c in contiguous:
+            r = check_contiguous_case(c)
+            report_case(c["name"], r, device_desc)
             rows.append(dict(case=c["name"], **r))
     return rows
 
@@ -301,9 +526,10 @@ def phase_main(device_desc: str):
     serve(eng, trace(cfg, n_requests=1, lo=64, hi=64, n_new=2))
     torch.cuda.reset_peak_memory_stats()
     requests = trace(cfg)
-    A.launches["acam_attention"] = 0
+    for key in A.launches:
+        A.launches[key] = 0
     cb, secs, times, peak_pages = serve(eng, requests, timed=True)
-    launches = A.launches["acam_attention"]
+    launches = A.launches["acam_attention_paged"]
     for r in requests:
         done = cb.done[r.rid]
         check(done.error is None, f"request {r.rid} failed: {done.error}")
@@ -336,39 +562,24 @@ def phase_profile(eng, main: dict) -> dict:
     busy time / wall time, against this run's wall (profiler on) and
     phase 4's (profiler off, a synchronisation around each call)."""
     requests, out = trace(eng.cfg), {}
-    rows, wall = profiled(
+    res = profile_run(
+        f"phase-4 trace again ({len(requests)} requests, "
+        f"{main['chunk_calls']} chunk calls + {main['decode_steps']} decode "
+        f"steps)",
         lambda: out.update(cb=serve(eng, requests)[0]),
         lambda: serve(eng, trace(eng.cfg, n_requests=1, lo=64, hi=64,
-                                 n_new=2)))
+                                 n_new=2)),
+        {"acam_attention_paged": main["launches"], "acam_attention": 0,
+         "acam_attention_single": 0}, top=12)
     cb = out["cb"]
-    calls = cb.chunk_calls + cb.decode_steps
     check((cb.chunk_calls, cb.decode_steps)
           == (main["chunk_calls"], main["decode_steps"]),
           "the profiled run made other model calls than phase 4")
-    busy_ms = sum(r[1] for r in rows)
-    attn = [r for r in rows if is_attention_kernel(r[0])]
-    attn_ms = sum(r[1] for r in attn)
-    attn_n = sum(r[2] for r in attn)
-    check(attn_n == main["launches"],
-          f"profiler saw {attn_n} attention launches, phase 4 counted "
-          f"{main['launches']}")
-    res = dict(requests=len(requests), calls=calls, wall_ms=1e3 * wall,
-               device_busy_ms=busy_ms, idle_share=1 - busy_ms / (1e3 * wall),
-               idle_share_phase4=1 - busy_ms / (1e3 * main["seconds"]),
-               attention_ms=attn_ms, attention_launches=attn_n,
-               attention_share=attn_ms / busy_ms,
-               top=[dict(kernel=k[:90], ms=ms, count=n, share=ms / busy_ms)
-                    for k, ms, n in rows[:12]])
-    print(f"[profile] phase-4 trace again ({len(requests)} requests, "
-          f"{cb.chunk_calls} chunk calls + {cb.decode_steps} decode steps): "
-          f"wall {res['wall_ms']:.1f} ms, device busy {busy_ms:.1f} ms, idle "
-          f"share {res['idle_share']:.3f} (against phase 4's wall "
-          f"{res['idle_share_phase4']:.3f}); attention kernel {attn_ms:.1f} ms "
-          f"over {attn_n} launches = {res['attention_share']:.3f} of busy",
-          flush=True)
-    for r in res["top"]:
-        print(f"[profile]   {r['ms']:9.2f} ms {r['share']:6.3f} "
-              f"{r['count']:7d}x  {r['kernel']}", flush=True)
+    if res["measured"]:
+        res["idle_share_phase4"] = (1 - res["device_busy_ms"]
+                                    / (1e3 * main["seconds"]))
+        print(f"[profile]   idle share against phase 4's wall: "
+              f"{res['idle_share_phase4']:.3f}", flush=True)
     return res
 
 
@@ -379,18 +590,284 @@ def phase_agree() -> None:
     eng = build_engine(n_layers=4)
     requests = lambda: trace(eng.cfg, n_requests=3, lo=64, hi=200, n_new=8)
     cb_k, *_ = serve(eng, requests())
-    kernel = A._launch_kernel
-    A._launch_kernel = A.acam_attention_codes_plain
+    kernel = A._launch_paged
+    A._launch_paged = A.acam_attention_codes_plain
     try:
         cb_p, *_ = serve(eng, requests())
     finally:
-        A._launch_kernel = kernel
+        A._launch_paged = kernel
     for rid in cb_k.done:
         got = cb_k.done[rid].result.tolist()
         want = cb_p.done[rid].result.tolist()
         check(got == want, f"request {rid}: kernel {got} != plain {want}")
     print(f"[agree] 4-layer gpt2-large: kernel and plain attention give the "
           f"same tokens for {len(cb_k.done)} requests", flush=True)
+
+
+# ----------------------------------------------------------- phases 6 to 8
+
+def timed_engine(eng, times: dict):
+    """Time the engine's prefill and decode calls (a synchronisation on
+    each side) and check that every call's logits are finite."""
+    for kind, attr in (("prefill", "_prefill"), ("decode", "_decode")):
+        inner = getattr(eng, attr)
+
+        def wrapped(*a, _inner=inner, _kind=kind, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = _inner(*a, **kw)
+            torch.cuda.synchronize()
+            times.setdefault(_kind, []).append(time.perf_counter() - t0)
+            check(bool(torch.isfinite(logits).all()),
+                  f"non-finite logits in a {_kind} call")
+            return logits, cache
+        setattr(eng, attr, wrapped)
+
+
+def untimed_engine(eng):
+    del eng._prefill, eng._decode
+
+
+def shallow(eng, n_layers):
+    """The same engine cut to its first ``n_layers`` layers."""
+    from repro_torch.serve import GenerationEngine
+    params = dict(eng.params, blocks=eng.params["blocks"][:n_layers])
+    return GenerationEngine(eng.cfg.replace(n_layers=n_layers), params,
+                            eng.exec_cfg, max_len=eng.max_len,
+                            device=eng.device)
+
+
+def reset_launches():
+    from repro_torch.kernels import acam_attention as A
+    for key in A.launches:
+        A.launches[key] = 0
+    return A.launches
+
+
+def bucket_trace(cfg, n_requests=16, lo=64, hi=448, n_new=32):
+    from repro_torch.serve import Request
+    gen = np.random.default_rng(SEED + 3)
+    return [Request(rid, gen.integers(0, cfg.vocab_size,
+                                      int(gen.integers(lo, hi + 1))
+                                      ).astype(np.int32), n_new=n_new)
+            for rid in range(n_requests)]
+
+
+def serve_buckets(eng, requests):
+    from repro_torch.serve import BatchScheduler
+    sched = BatchScheduler(eng, bucket_size=4)
+    for r in requests:
+        sched.submit(r)
+    t0 = time.perf_counter()
+    done = sched.run_all()
+    torch.cuda.synchronize()
+    return sched, done, time.perf_counter() - t0
+
+
+def phase_bucketed(device_desc: str):
+    eng = build_engine()
+    eng.max_len = 512
+    cfg = eng.cfg
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.vocab_size)
+          == (36, 1280, 20, 50257), "gpt2-large is not at published width")
+    # warm-up: one short bucket (allocator state, kernel libraries loaded)
+    serve_buckets(eng, bucket_trace(cfg, n_requests=2, lo=64, hi=80, n_new=2))
+    requests = bucket_trace(cfg)
+    times: dict = {}
+    timed_engine(eng, times)
+    torch.cuda.reset_peak_memory_stats()
+    launches = reset_launches()
+    try:
+        sched, done, secs = serve_buckets(eng, requests)
+    finally:
+        untimed_engine(eng)
+    counts = dict(launches)
+    for r in requests:
+        check(len(done[r.rid].result) == r.n_new == 32,
+              f"request {r.rid} returned {len(done[r.rid].result)} tokens")
+    prefills = len(times["prefill"])
+    calls = prefills + sched.decode_steps
+    check(counts["acam_attention"] == 2 * cfg.n_layers * calls
+          and counts["acam_attention_paged"] == 0
+          and counts["acam_attention_single"] == 0,
+          f"{counts} attention launches for {calls} model calls")
+    tokens = sum(len(done[r.rid].result) for r in requests)
+    res = dict(tokens=tokens, seconds=secs, tokens_per_s=tokens / secs,
+               prefills=prefills, decode_steps=sched.decode_steps,
+               prefill_ms=1e3 * float(np.mean(times["prefill"])),
+               decode_ms=1e3 * float(np.mean(times["decode"])),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches=counts)
+    print(f"[bucketed] gpt2-large 36L d1280 raceit_q8, buckets of 4, "
+          f"max_len 512: {tokens} tokens in {secs:.2f} s = "
+          f"{res['tokens_per_s']:.1f} tok/s; {prefills} prefills (mean "
+          f"{res['prefill_ms']:.1f} ms), {sched.decode_steps} decode steps "
+          f"(mean {res['decode_ms']:.1f} ms); peak memory "
+          f"{res['peak_mem_gib']:.2f} GiB; contiguous attention launches "
+          f"{counts['acam_attention']} = 2 x 36 x {calls} ({device_desc})",
+          flush=True)
+    return res, eng
+
+
+def build_command_r(n_layers=8, device="cuda"):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ExecConfig
+    from repro_torch.models import Model, quantize_model_params
+    from repro_torch.serve import GenerationEngine
+    cfg = get_config("command-r-35b").replace(
+        param_dtype="float32", compute_dtype="float32", n_layers=n_layers)
+    model = Model(cfg, device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = quantize_model_params(model.init(gen))
+    return GenerationEngine(cfg, params, ExecConfig.serving(mode="raceit"),
+                            max_len=512, device=device)
+
+
+def solo_prompts(cfg, n=4, lo=64, hi=256):
+    gen = np.random.default_rng(SEED + 4)
+    return [gen.integers(0, cfg.vocab_size, int(gen.integers(lo, hi + 1))
+                         ).astype(np.int32) for _ in range(n)]
+
+
+def phase_solo(device_desc: str):
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = build_command_r()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    cfg = eng.cfg
+    check((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+           cfg.d_ff, cfg.vocab_size) == (8192, 64, 8, 128, 22528, 256000),
+          "command-r-35b is not at published width")
+    print("[solo] plan:\n" + eng.explain_plan(), flush=True)
+    eng.generate(solo_prompts(cfg, n=1, lo=64, hi=64)[0][None], 2)  # warm-up
+    prompts = solo_prompts(cfg)
+    times: dict = {}
+    timed_engine(eng, times)
+    per_request, outs = [], []
+    t0 = time.perf_counter()
+    try:
+        for p in prompts:
+            launches = reset_launches()
+            outs.append(eng.generate(p[None], 32)[0])
+            per_request.append(dict(launches))
+    finally:
+        untimed_engine(eng)
+    secs = time.perf_counter() - t0
+    for p, out, counts in zip(prompts, outs, per_request):
+        check(out.shape == (32,) and (0 <= out).all()
+              and (out < cfg.vocab_size).all(), "bad solo tokens")
+        # every decode step: the one-tile kernel once per layer; the
+        # prefill: the two-pass kernel twice per layer
+        check(counts == {"acam_attention_paged": 0,
+                         "acam_attention": 2 * cfg.n_layers,
+                         "acam_attention_single": 31 * cfg.n_layers},
+              f"solo prompt of {len(p)} tokens launched {counts}")
+    tokens = 32 * len(prompts)
+    res = dict(tokens=tokens, seconds=secs, tokens_per_s=tokens / secs,
+               init_s=init_s, init_peak_mem_gib=init_peak,
+               prompt_lens=[len(p) for p in prompts],
+               prefill_ms=1e3 * float(np.mean(times["prefill"])),
+               decode_ms=1e3 * float(np.mean(times["decode"])),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches={k: sum(c[k] for c in per_request)
+                         for k in per_request[0]})
+    print(f"[solo] command-r-35b 8 of 40 layers, d8192, raceit_q8 "
+          f"(init {init_s:.1f} s): prompts {res['prompt_lens']}, {tokens} "
+          f"tokens in {secs:.2f} s = {res['tokens_per_s']:.1f} tok/s; "
+          f"prefill mean {res['prefill_ms']:.1f} ms, decode step mean "
+          f"{res['decode_ms']:.1f} ms; peak memory {res['peak_mem_gib']:.2f} "
+          f"GiB serving, {init_peak:.2f} GiB at init; launches "
+          f"{res['launches']} ({device_desc})", flush=True)
+    return res, eng
+
+
+def profile_run(what, fn, warm, expect: dict, top: int = 8) -> dict:
+    """``fn()`` under torch.profiler: device time by kernel, the card's
+    idle share (1 - device busy / wall) and the attention kernels' share.
+    A trace counts only if the profiler saw exactly the ``expect`` launches
+    per kernel (two tries); else its numbers are not measured."""
+    rows, wall, seen, complete = profiled_complete(fn, warm, expect)
+    if not complete:
+        print(f"[profile] {what}: not measured; in two tries torch.profiler "
+              f"recorded at last {seen} attention launches, the counters "
+              f"{expect}", flush=True)
+        return dict(measured=False, wall_ms=1e3 * wall, launches_seen=seen)
+    busy_ms = sum(r[1] for r in rows)
+    attn_ms = launches_seen(rows)[1]
+    res = dict(measured=True, wall_ms=1e3 * wall, device_busy_ms=busy_ms,
+               idle_share=1 - busy_ms / (1e3 * wall), attention_ms=attn_ms,
+               attention_share=sum(attn_ms.values()) / busy_ms,
+               top=[dict(kernel=k[:90], ms=ms, count=n, share=ms / busy_ms)
+                    for k, ms, n in rows[:top]])
+    print(f"[profile] {what}: wall {res['wall_ms']:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms, idle share {res['idle_share']:.3f}; attention "
+          f"kernels {sum(attn_ms.values()):.1f} ms = "
+          f"{res['attention_share']:.3f} of busy ({seen})", flush=True)
+    for r in res["top"]:
+        print(f"[profile]   {r['ms']:9.2f} ms {r['share']:6.3f} "
+              f"{r['count']:7d}x  {r['kernel']}", flush=True)
+    return res
+
+
+def phase_profile_contiguous(gpt2, command_r) -> dict:
+    """The first bucket of phase 6 and the first prompt of phase 7 again,
+    under torch.profiler."""
+    L = gpt2.cfg.n_layers
+    bucket = bucket_trace(gpt2.cfg)[:4]
+    warm_b = lambda: serve_buckets(
+        gpt2, bucket_trace(gpt2.cfg, n_requests=2, lo=64, hi=80, n_new=2))
+    res = {"bucket": profile_run(
+        "one bucket of phase 6 (4 requests, 1 prefill + 31 decode steps)",
+        lambda: serve_buckets(gpt2, bucket), warm_b,
+        {"acam_attention_paged": 0, "acam_attention": 2 * L * 32,
+         "acam_attention_single": 0})}
+    L = command_r.cfg.n_layers
+    p = solo_prompts(command_r.cfg)[0]
+    warm_s = lambda: command_r.generate(p[None, :64], 2)
+    res["solo"] = profile_run(
+        f"one solo prompt of phase 7 ({len(p)} tokens, 32 new)",
+        lambda: command_r.generate(p[None], 32), warm_s,
+        {"acam_attention_paged": 0, "acam_attention": 2 * L,
+         "acam_attention_single": 31 * L})
+    return res
+
+
+def swapped_to_plain(fn):
+    """Run ``fn()`` with the contiguous and one-tile kernels swapped for
+    their plain versions."""
+    from repro_torch.kernels import acam_attention as A
+    kernels = (A._launch_contiguous, A._launch_single)
+    A._launch_contiguous = A.acam_attention_contiguous_plain
+    A._launch_single = A.acam_attention_single_plain
+    try:
+        return fn()
+    finally:
+        A._launch_contiguous, A._launch_single = kernels
+
+
+def phase_agree_contiguous(gpt2, command_r) -> None:
+    eng = shallow(gpt2, 4)
+    requests = lambda: bucket_trace(eng.cfg, n_requests=4, lo=64, hi=200,
+                                    n_new=8)
+    _, done_k, _ = serve_buckets(eng, requests())
+    _, done_p, _ = swapped_to_plain(lambda: serve_buckets(eng, requests()))
+    for rid in done_k:
+        got, want = done_k[rid].result.tolist(), done_p[rid].result.tolist()
+        check(got == want, f"bucketed request {rid}: kernel {got} != plain "
+                           f"{want}")
+    eng = shallow(command_r, 2)
+    prompts = solo_prompts(eng.cfg, n=2, lo=64, hi=160)
+    for p in prompts:
+        got = eng.generate(p[None], 8)[0].tolist()
+        want = swapped_to_plain(lambda: eng.generate(p[None], 8))[0].tolist()
+        check(got == want, f"solo prompt of {len(p)}: kernel {got} != plain "
+                           f"{want}")
+    print(f"[agree] 4-layer gpt2-large buckets ({len(done_k)} requests) and "
+          f"2-layer command-r-35b solo ({len(prompts)} prompts): kernels "
+          f"and plain attention give the same tokens", flush=True)
 
 
 def main() -> None:
@@ -406,36 +883,63 @@ def main() -> None:
           f"{torch.cuda.device_count()} device(s)", flush=True)
 
     t0 = time.perf_counter()
-    build.library("acam_attention")
-    print(f"[build] acam_attention: {time.perf_counter() - t0:.1f} s (nvcc "
-          f"sm_90a)", flush=True)
-    for line in build.build_log("acam_attention").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build]   {line.strip()}", flush=True)
+    libs = ("acam_attention", "acam_attention_single")
+    build.build_all(libs)
+    print(f"[build] {', '.join(libs)}: {time.perf_counter() - t0:.1f} s "
+          f"(nvcc sm_90a, in parallel)", flush=True)
+    for lib in libs:
+        for line in build.build_log(lib).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build]   {lib}: {line.strip()}", flush=True)
 
+    t_start = time.perf_counter()
     kernel_rows = phase_kernels(desc)
     main_res, eng = phase_main(desc)
     prof_res = phase_profile(eng, main_res)
     del eng
     phase_agree()
+    torch.cuda.empty_cache()
+    bucket_res, gpt2 = phase_bucketed(desc)
+    solo_res, command_r = phase_solo(desc)
+    prof2_res = phase_profile_contiguous(gpt2, command_r)
+    phase_agree_contiguous(gpt2, command_r)
+    del gpt2, command_r
+    print(f"[time] phases 3 to 8: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
 
-    # the kernel line: main-path decode shape (pot) is the kernel's headline
-    head = next(r for r in kernel_rows if r["case"] == "gpt2-large decode pot")
-    worst = max(r["max_abs_err"] for r in kernel_rows)
+    # each kernel's headline: its main-path decode shape in mode pot
+    heads = {"acam_attention_paged": "gpt2-large decode pot",
+             "acam_attention": "gpt2-large bucket decode pot",
+             "acam_attention_single": "command-r solo gqa decode pot"}
+    replaces = {"acam_attention_paged": "src/repro/kernels/acam_attention.py:182",
+                "acam_attention": "src/repro/kernels/acam_attention.py:182",
+                "acam_attention_single": "src/repro/kernels/acam_attention.py:345"}
+    # launches on the main paths, each counted from 0 over its own run
+    launches = {"acam_attention_paged": main_res["launches"],
+                "acam_attention": (bucket_res["launches"]["acam_attention"]
+                                   + solo_res["launches"]["acam_attention"]),
+                "acam_attention_single":
+                    solo_res["launches"]["acam_attention_single"]}
+    kernels = []
+    for name, case in heads.items():
+        head = next(r for r in kernel_rows if r["case"] == case)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{KERNEL_SOURCES[name]}.cu",
+            "replaces": replaces[name], "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in kernel_rows
+                               if r["kernel"] == name),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": None})
     print("[record] " + json.dumps({"cases": kernel_rows, "main": main_res,
-                                    "profile": prof_res}), flush=True)
+                                    "profile": prof_res,
+                                    "bucketed": bucket_res,
+                                    "solo": solo_res,
+                                    "profile_contiguous": prof2_res}),
+          flush=True)
     print(desc, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "acam_attention_paged",
-        "route": "cuda",
-        "source": "src/repro_torch/csrc/acam_attention.cu",
-        "replaces": "src/repro/kernels/acam_attention.py:182",
-        "launches": main_res["launches"],
-        "max_abs_err": worst,
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": None,
-    }]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

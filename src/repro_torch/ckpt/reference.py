@@ -26,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..configs.base import ModelConfig
 
 __all__ = ["params_from_numpy", "load_reference_checkpoint"]
@@ -48,8 +49,10 @@ def _tree(t, device):
     return _tensor(t, device)
 
 
-def params_from_numpy(tree: dict, cfg: ModelConfig, device="cpu") -> dict:
-    """The reference's (scan-stacked) parameter tree -> the port's layout."""
+def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
+    """The reference's (scan-stacked) parameter tree -> the port's layout,
+    on ``device`` (``cuda`` unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     if cfg.is_encoder_decoder or "blocks" not in tree:
         raise NotImplementedError("only decoder-only stacks are ported")
     P = cfg.block_period
@@ -110,12 +113,14 @@ def _step_dir(directory: Path, step: Optional[int]) -> Path:
 
 def load_reference_checkpoint(directory, cfg: ModelConfig,
                               step: Optional[int] = None,
-                              device="cpu") -> dict:
+                              device=None) -> dict:
     """Read a reference checkpoint of model parameters into the port's layout.
 
     The saved tree may be the parameters themselves or a tuple whose first
-    element they are (the launchers save ``(params, opt_state)``).
+    element they are (the launchers save ``(params, opt_state)``). Tensors
+    land on ``device``: ``cuda`` unless the caller asks for the CPU.
     """
+    device = resolve_device(device)
     d = _step_dir(Path(directory), step)
     meta = json.loads((d / "meta.json").read_text())
     dtypes = meta.get("dtypes", {})

@@ -1,8 +1,12 @@
-// Fused Fig.-12 RACE-IT attention over a block-paged int8 KV pool, for sm_90a.
+// Fused Fig.-12 RACE-IT attention over int8 codes, two passes, for sm_90a:
+// over a block-paged KV pool (pass_a / pass_b) and over contiguous (G, Sk, D)
+// k/v (contiguous_sums / contiguous_probv).
 //
 // Replaces the TPU kernel src/repro/kernels/acam_attention.py::_attn_kernel
-// (its paged scalar-prefetch grid). What it computes, per group g (a query
-// head of a slot, or a KV head with its rep sharing queries) and query row i:
+// (its paged scalar-prefetch grid, its contiguous decode grid with scalar or
+// per-group kv_len, and its causal / masked prefill grid). What it computes,
+// per group g (a query head, or a KV head with its rep sharing queries) and
+// query row i:
 //
 //   pass A  x = LOGIT code of round(f32(q.k) * s1 / 2^-3), masked keys at the
 //           LOGIT minimum; S = sum over valid keys of exp_val[x] in the
@@ -19,40 +23,44 @@
 // prefetched it as a scalar operand) and stops at the group's own fill
 // level: key blocks past kv_len hold no valid key and add exact zeros.
 //
-// Bit-exactness with the reference (the plain PyTorch version in
-// repro_torch/kernels/acam_attention.py repeats every step):
+// Bit-exactness with the reference (the plain PyTorch versions in
+// repro_torch/kernels/acam_attention.py repeat every step):
 //   * rintf rounds half to even like jnp.round; the file is built with
 //     -fmad=false and every f32 step is an explicit __f*_rn operation, so
 //     nvcc fuses nothing the reference does not fuse;
-//   * the row sum adds per-page block sums in page order; inside a block
-//     XLA's CPU reduction adds runs of 32 keys one by one and then the runs
-//     in order, and so does this kernel (pages of <= 32 keys or a multiple);
+//   * the row sum adds per-block sums in block order (a block is a page, or
+//     bk = min(512, max(128, Sk)) contiguous keys); inside a block XLA's CPU
+//     reduction adds runs of keys one by one and then the runs in order
+//     (acam_common.cuh chunk_bounds), and so do these kernels;
 //   * the PoT encoder's log is XLA's float32 log (a Cephes polynomial with
 //     fused multiply-adds), and log * f32(1/ln 2) - e_min is one more FMA,
 //     as XLA contracts it, so codes at half-step boundaries agree;
 //   * constant divisors are reciprocal multiplies, as XLA rewrites them:
 //     max(cmax/256, 1e-12) * f32(1/127); the table entry itself divides.
 //
-// What bounds it on an H100: bytes. Per call it must read the int8 K pages
-// twice (once per pass) and the V pages once, over the live pages only, plus
-// the int8 queries and the int32 output; at 3.35 TB/s that is microseconds.
-// This simple design stays far from it: one block per (group, 16-row tile)
-// walks the pages one at a time with plain loads, computes the logits with
-// __dp4a on CUDA cores, and the row sums serially per 32-key run. wgmma
-// tiles, TMA page loads, several groups per block and a persistent grid are
-// left for later work.
+// What bounds it on an H100: bytes at decode (the int8 K read twice, once
+// per pass, and V once, over the live keys only, plus the queries and the
+// int32 output), operations in a long prefill. At 3.35 TB/s the decode
+// bound is microseconds. This simple design stays far from it: one block
+// per (group, 16-row tile) walks the keys one page or one 128-key tile at a
+// time with plain loads, computes the logits with __dp4a on CUDA cores, and
+// the row sums serially per run. A group stops at its own fill level, and a
+// causally masked key skips its dot product. wgmma tiles, TMA loads,
+// several groups per block and a persistent grid are left for later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <limits.h>
 
+#include "acam_common.cuh"
+
 namespace {
+
+using namespace acam;
 
 constexpr int kThreads = 128;
 constexpr int kRowTile = 16;
-constexpr int kLogitMin = -128;
-constexpr int kLogitMax = 127;
-constexpr int kRun = 32;  // XLA's CPU reduction adds keys in runs of 32
+constexpr int kSub = 128;  // contiguous keys per K/V tile in shared memory
 
 struct Params {
   const int8_t* q;            // (G, Sq, D)
@@ -70,65 +78,9 @@ struct Params {
   float* row_sum;             // (G * Sq) f32 scratch: pass A -> pass B
   int* cmax;                  // [1] seeded with cmax_floor
   int G, Sq, D, page_size, max_pages, gps;
-  float e_min, step_scale, safe_min, thr;
+  PotConsts pot;
   int frac_shift;
 };
-
-// float32 log as XLA's CPU backend evaluates it (Cephes logf, FMA-contracted)
-__device__ __forceinline__ float ref_logf(float x) {
-  x = fmaxf(x, 1.17549435e-38f);
-  const int bits = __float_as_int(x);
-  float e = __int2float_rn((bits >> 23) - 126);
-  const float m = __int_as_float((bits & ~0x7f800000) | 0x3f000000);
-  const bool small = m < 0.707106781186547524f;
-  float xx = __fsub_rn(m, 1.0f);
-  e = __fsub_rn(e, small ? 1.0f : 0.0f);
-  xx = __fadd_rn(xx, small ? m : 0.0f);
-  const float x2 = __fmul_rn(xx, xx);
-  const float x3 = __fmul_rn(x2, xx);
-  float y = __fmaf_rn(xx, 7.0376836292E-2f, -1.1514610310E-1f);
-  float y1 = __fmaf_rn(xx, -1.2420140846E-1f, 1.4249322787E-1f);
-  float y2 = __fmaf_rn(xx, 2.0000714765E-1f, -2.4999993993E-1f);
-  y = __fmaf_rn(y, xx, 1.1676998740E-1f);
-  y1 = __fmaf_rn(y1, xx, -1.6668057665E-1f);
-  y2 = __fmaf_rn(y2, xx, 3.3333331174E-1f);
-  y = __fmaf_rn(y, x3, y1);
-  y = __fmaf_rn(y, x3, y2);
-  y = __fmaf_rn(y, x3, __fmul_rn(e, -2.12194440e-4f));
-  xx = __fsub_rn(xx, __fmul_rn(x2, 0.5f));
-  xx = __fadd_rn(xx, y);
-  return __fadd_rn(xx, __fmul_rn(e, 0.693359375f));
-}
-
-// PoT-encode a row sum exactly as repro.kernels.acam_attention._pot_encode_sum
-__device__ __forceinline__ int pot_encode(float S, const Params& p) {
-  const float kInvLn2 = 0x1.715476p+0f;  // f32(1 / f32(ln 2))
-  const float safe = fmaxf(S, p.safe_min);
-  // log(x) * (1/ln 2) - e_min, contracted into one FMA as XLA does
-  float y = __fmaf_rn(ref_logf(safe), kInvLn2, -p.e_min);
-  if (p.step_scale != 1.0f) y = __fmul_rn(y, p.step_scale);
-  const float e = fminf(fmaxf(rintf(y), 0.0f), 254.0f);
-  return S < p.thr ? 0 : __float2int_rn(e) + 1;
-}
-
-// the LOGIT code of (row r, key c) of this block: matmul-1 + div-add
-__device__ __forceinline__ int logit_code(const int* q_row, const int* k_row,
-                                          int d4, float s1) {
-  int dot = 0;
-  for (int w = 0; w < d4; ++w) dot = __dp4a(q_row[w], k_row[w], dot);
-  const float logits = __fmul_rn(__int2float_rn(dot), s1);
-  const float x = rintf(__fdiv_rn(logits, 0.125f));
-  return __float2int_rn(fminf(fmaxf(x, (float)kLogitMin), (float)kLogitMax));
-}
-
-__device__ __forceinline__ void load_words(int* dst, int dst_stride,
-                                           const int8_t* src, int rows, int d4) {
-  const int* s = reinterpret_cast<const int*>(src);
-  for (int idx = threadIdx.x; idx < rows * d4; idx += blockDim.x) {
-    const int r = idx / d4, w = idx % d4;
-    dst[r * dst_stride + w] = s[idx];
-  }
-}
 
 __device__ __forceinline__ bool key_masked(const Params& p, int g, int row,
                                            int kpos) {
@@ -212,7 +164,7 @@ __global__ void __launch_bounds__(kThreads) pass_a(Params p) {
   if (threadIdx.x < nr) {
     const int r = threadIdx.x;
     const float S = sum_s[r];
-    const int L = p.log_lut[pot_encode(S, p)];
+    const int L = p.log_lut[pot_encode(S, p.pot)];
     const int dmax = min(max(xmax_s[r] - L * (1 << p.frac_shift), kLogitMin),
                          kLogitMax);
     // a zero-length group has no keys: all-zero rows, no cmax contribution
@@ -242,16 +194,12 @@ __global__ void __launch_bounds__(kThreads) pass_b(Params p) {
   int8_t* v_s = reinterpret_cast<int8_t*>(pc_s + kRowTile * ps);  // ps * D
 
   // requant table from the global cmax (quantize_tensor of the PROB values)
-  const float amax = __fmul_rn(__int2float_rn(*p.cmax), 0.00390625f);
-  const float scale = __fmul_rn(fmaxf(amax, 1e-12f), 0x1.020408p-7f);
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) {
-    const float pv = __fmul_rn(__int2float_rn(p.prob_lut[i]), 0.00390625f);
-    const float c = rintf(__fdiv_rn(pv, scale));
-    rq_s[i] = __float2int_rn(fminf(fmaxf(c, -128.0f), 127.0f));
-  }
+  const int cm = *p.cmax;
+  for (int i = threadIdx.x; i < 256; i += blockDim.x)
+    rq_s[i] = requant_code(p.prob_lut[i], cm);
   if (threadIdx.x < nr) {
     const float S = p.row_sum[(long long)g * p.Sq + r0 + threadIdx.x];
-    lsh_s[threadIdx.x] = p.log_lut[pot_encode(S, p)] * (1 << p.frac_shift);
+    lsh_s[threadIdx.x] = p.log_lut[pot_encode(S, p.pot)] * (1 << p.frac_shift);
   }
   load_words(q_s, d4, p.q + ((long long)g * p.Sq + r0) * D, nr, d4);
 
@@ -313,6 +261,210 @@ size_t smem_pass_b(int ps, int d4) {
                         + kRowTile * ps) + (size_t)ps * d4 * 4;
 }
 
+// ---------------------------------------------------------------------------
+// contiguous layout: k/v (G, Sk, D), key blocks of bk keys
+// ---------------------------------------------------------------------------
+
+struct CParams {
+  const int8_t* q;            // (G, Sq, D)
+  const int8_t* k;            // (G, Sk, D)
+  const int8_t* v;            // (G, Sk, D)
+  const int* kv_len;          // (G,) valid keys per group, <= Sk
+  const int8_t* mask;         // (G / mask_div, Sq, Sk) or null; 0 = masked key
+  int mask_div;
+  const float* logit_scale;   // () s_q * s_k
+  const int* q_offset;        // () causal offset of row 0
+  const float* exp_val;       // [256] f32
+  const int* log_lut;         // [256]
+  const int* prob_lut;        // [256]
+  int* out;                   // (G, Sq, D) int32
+  float* row_sum;             // (G * Sq) f32 scratch: pass A -> pass B
+  int* cmax;                  // [1] seeded with cmax_floor
+  int G, Sq, Sk, D, bk, causal, per_row;
+  PotConsts pot;
+  int frac_shift;
+};
+
+// a masked key sits at the LOGIT minimum (mask array first, else causal)
+__device__ __forceinline__ bool c_masked(const CParams& p, int g, int row,
+                                         int kpos, int qoff) {
+  if (p.mask != nullptr) {
+    const long long at = ((long long)(g / p.mask_div) * p.Sq + row) * p.Sk
+                         + kpos;
+    return p.mask[at] == 0;
+  }
+  return p.causal && kpos > row + qoff;
+}
+
+__global__ void __launch_bounds__(kThreads) contiguous_sums(CParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int g = blockIdx.x, r0 = blockIdx.y * kRowTile;
+  const int nr = min(kRowTile, p.Sq - r0);
+  const int D = p.D, d4 = D / 4, ks = d4 + 1, bk = p.bk;
+  const int nch = n_chunks(bk);
+  const int len = p.kv_len[g];
+  const int nblk = (len + bk - 1) / bk;  // blocks past the fill add zeros
+  const float s1 = *p.logit_scale;
+  const int qoff = p.causal ? *p.q_offset : 0;
+
+  float* exp_s = reinterpret_cast<float*>(smem);          // 256
+  int* q_s = reinterpret_cast<int*>(exp_s + 256);         // kRowTile * d4
+  int* k_s = q_s + kRowTile * d4;                         // kSub * ks
+  float* e_s = reinterpret_cast<float*>(k_s + kSub * ks);  // kRowTile * bk
+  float* run_s = e_s + kRowTile * bk;                     // kRowTile * nch
+  float* sum_s = run_s + kRowTile * nch;                  // kRowTile
+  int* xmax_s = reinterpret_cast<int*>(sum_s + kRowTile);  // kRowTile
+  __shared__ int block_cmax;
+
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) exp_s[i] = p.exp_val[i];
+  load_words(q_s, d4, p.q + ((long long)g * p.Sq + r0) * D, nr, d4);
+  if (threadIdx.x < kRowTile) {
+    sum_s[threadIdx.x] = 0.0f;
+    xmax_s[threadIdx.x] = kLogitMin;
+  }
+  if (threadIdx.x == 0) block_cmax = INT_MIN;
+
+  for (int j = 0; j < nblk; ++j) {
+    const int kb0 = j * bk;
+    for (int t0 = 0; t0 < bk; t0 += kSub) {
+      const int nt = min(kSub, bk - t0);
+      const int live = max(0, min(nt, len - (kb0 + t0)));
+      __syncthreads();  // the previous tile's readers are done with k_s
+      load_words(k_s, ks, p.k + ((long long)g * p.Sk + kb0 + t0) * D, live,
+                 d4);
+      __syncthreads();
+      for (int idx = threadIdx.x; idx < nr * nt; idx += blockDim.x) {
+        const int r = idx / nt, c = idx % nt, kpos = kb0 + t0 + c;
+        float e = 0.0f;  // keys past the fill level do not exist
+        if (c < live) {
+          const int x = c_masked(p, g, r0 + r, kpos, qoff)
+                            ? kLogitMin
+                            : logit_code(q_s + r * d4, k_s + c * ks, d4, s1);
+          e = exp_s[x + 128];
+          atomicMax(&xmax_s[r], x);
+        }
+        e_s[r * bk + t0 + c] = e;
+      }
+    }
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < nr * nch; idx += blockDim.x) {
+      const int r = idx / nch, c = idx % nch;
+      int a, b;
+      chunk_bounds(bk, c, a, b);
+      const float* er = e_s + r * bk;
+      float s = er[a];
+      for (int t = a + 1; t < b; ++t) s = __fadd_rn(s, er[t]);
+      run_s[idx] = s;
+    }
+    __syncthreads();
+    if (threadIdx.x < nr) {
+      const int r = threadIdx.x;
+      float s = run_s[r * nch];
+      for (int c = 1; c < nch; ++c) s = __fadd_rn(s, run_s[r * nch + c]);
+      sum_s[r] = __fadd_rn(sum_s[r], s);
+    }
+  }
+  __syncthreads();
+
+  if (threadIdx.x < nr) {
+    const int r = threadIdx.x;
+    const float S = sum_s[r];
+    const int L = p.log_lut[pot_encode(S, p.pot)];
+    const int dmax = min(max(xmax_s[r] - L * (1 << p.frac_shift), kLogitMin),
+                         kLogitMax);
+    // a zero-length group of a per-group vector has no keys: zero rows and
+    // no cmax contribution (a scalar length keeps the reference's rule)
+    const int c = (p.per_row && len == 0) ? 0 : p.prob_lut[dmax + 128];
+    p.row_sum[(long long)g * p.Sq + r0 + r] = S;
+    atomicMax(&block_cmax, c);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) atomicMax(p.cmax, block_cmax);
+}
+
+__global__ void __launch_bounds__(kThreads) contiguous_probv(CParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int g = blockIdx.x, r0 = blockIdx.y * kRowTile;
+  const int nr = min(kRowTile, p.Sq - r0);
+  const int D = p.D, d4 = D / 4, ks = d4 + 1;
+  const int len = p.kv_len[g];
+  const float s1 = *p.logit_scale;
+  const int qoff = p.causal ? *p.q_offset : 0;
+
+  int* rq_s = reinterpret_cast<int*>(smem);              // 256
+  int* lsh_s = rq_s + 256;                               // kRowTile
+  int* q_s = lsh_s + kRowTile;                           // kRowTile * d4
+  int* k_s = q_s + kRowTile * d4;                        // kSub * ks
+  int* pc_s = k_s + kSub * ks;                           // kRowTile * kSub
+  int8_t* v_s = reinterpret_cast<int8_t*>(pc_s + kRowTile * kSub);  // kSub*D
+
+  const int cm = *p.cmax;
+  for (int i = threadIdx.x; i < 256; i += blockDim.x)
+    rq_s[i] = requant_code(p.prob_lut[i], cm);
+  if (threadIdx.x < nr) {
+    const float S = p.row_sum[(long long)g * p.Sq + r0 + threadIdx.x];
+    lsh_s[threadIdx.x] = p.log_lut[pot_encode(S, p.pot)] * (1 << p.frac_shift);
+  }
+  load_words(q_s, d4, p.q + ((long long)g * p.Sq + r0) * D, nr, d4);
+
+  constexpr int kMaxOut = kRowTile * 128 / kThreads;  // D <= 128
+  int acc[kMaxOut];
+#pragma unroll
+  for (int t = 0; t < kMaxOut; ++t) acc[t] = 0;
+
+  // keys past the fill level hold PROB code 0: only live keys are visited
+  for (int t0 = 0; t0 < len; t0 += kSub) {
+    const int nt = min(kSub, len - t0);
+    const long long base = ((long long)g * p.Sk + t0) * D;
+    __syncthreads();  // the previous tile's readers are done
+    load_words(k_s, ks, p.k + base, nt, d4);
+    {
+      const int* src = reinterpret_cast<const int*>(p.v + base);
+      int* dst = reinterpret_cast<int*>(v_s);
+      for (int idx = threadIdx.x; idx < nt * d4; idx += blockDim.x)
+        dst[idx] = src[idx];
+    }
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < nr * nt; idx += blockDim.x) {
+      const int r = idx / nt, c = idx % nt, kpos = t0 + c;
+      const int x = c_masked(p, g, r0 + r, kpos, qoff)
+                        ? kLogitMin
+                        : logit_code(q_s + r * d4, k_s + c * ks, d4, s1);
+      const int d = min(max(x - lsh_s[r], kLogitMin), kLogitMax);
+      pc_s[r * kSub + c] = rq_s[d + 128];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int t = 0; t < kMaxOut; ++t) {
+      const int idx = threadIdx.x + t * kThreads;
+      if (idx < nr * D) {
+        const int r = idx / D, d = idx % D;
+        int a = acc[t];
+        for (int c = 0; c < nt; ++c) a += pc_s[r * kSub + c] * (int)v_s[c * D + d];
+        acc[t] = a;
+      }
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < kMaxOut; ++t) {
+    const int idx = threadIdx.x + t * kThreads;
+    if (idx < nr * D) {
+      const int r = idx / D, d = idx % D;
+      p.out[((long long)g * p.Sq + r0 + r) * D + d] = acc[t];
+    }
+  }
+}
+
+size_t smem_sums(int bk, int d4) {
+  return sizeof(int) * (256 + kRowTile * d4 + kSub * (d4 + 1) + kRowTile * bk
+                        + kRowTile * (bk / kRun + 1) + 2 * kRowTile);
+}
+
+size_t smem_probv(int d4) {
+  return sizeof(int) * (256 + kRowTile + kRowTile * d4 + kSub * (d4 + 1)
+                        + kRowTile * kSub) + (size_t)kSub * d4 * 4;
+}
+
 }  // namespace
 
 // Launch one pass (0 = A, 1 = B) on `stream`; returns cudaGetLastError().
@@ -343,8 +495,8 @@ extern "C" int acam_attention_paged_launch(
   p.cmax = static_cast<int*>(cmax);
   p.G = G; p.Sq = Sq; p.D = D; p.page_size = page_size;
   p.max_pages = max_pages; p.gps = gps;
-  p.e_min = e_min; p.step_scale = step_scale; p.safe_min = safe_min;
-  p.thr = thr; p.frac_shift = frac_shift;
+  p.pot = PotConsts{e_min, step_scale, safe_min, thr};
+  p.frac_shift = frac_shift;
 
   const dim3 grid(G, (Sq + kRowTile - 1) / kRowTile);
   const int d4 = D / 4;
@@ -359,6 +511,56 @@ extern "C" int acam_attention_paged_launch(
     pass_a<<<grid, kThreads, smem, s>>>(p);
   } else {
     pass_b<<<grid, kThreads, smem, s>>>(p);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Launch one pass (0 = sums, 1 = PROB . V) of the contiguous layout on
+// `stream`; returns cudaGetLastError().
+extern "C" int acam_attention_contiguous_launch(
+    int pass, const void* q, const void* k, const void* v, const void* kv_len,
+    const void* mask, int mask_div, const void* logit_scale,
+    const void* q_offset, const void* exp_val, const void* log_lut,
+    const void* prob_lut, void* out, void* row_sum, void* cmax, int G, int Sq,
+    int Sk, int D, int bk, int causal, int per_row, float e_min,
+    float step_scale, float safe_min, float thr, int frac_shift,
+    void* stream) {
+  if (D % 4 != 0 || D > 128 || G <= 0 || Sq <= 0 || Sk <= 0 || bk <= 0 ||
+      bk > 512)
+    return (int)cudaErrorInvalidValue;
+  CParams p;
+  p.q = static_cast<const int8_t*>(q);
+  p.k = static_cast<const int8_t*>(k);
+  p.v = static_cast<const int8_t*>(v);
+  p.kv_len = static_cast<const int*>(kv_len);
+  p.mask = static_cast<const int8_t*>(mask);
+  p.mask_div = mask_div;
+  p.logit_scale = static_cast<const float*>(logit_scale);
+  p.q_offset = static_cast<const int*>(q_offset);
+  p.exp_val = static_cast<const float*>(exp_val);
+  p.log_lut = static_cast<const int*>(log_lut);
+  p.prob_lut = static_cast<const int*>(prob_lut);
+  p.out = static_cast<int*>(out);
+  p.row_sum = static_cast<float*>(row_sum);
+  p.cmax = static_cast<int*>(cmax);
+  p.G = G; p.Sq = Sq; p.Sk = Sk; p.D = D; p.bk = bk;
+  p.causal = causal; p.per_row = per_row;
+  p.pot = PotConsts{e_min, step_scale, safe_min, thr};
+  p.frac_shift = frac_shift;
+
+  const dim3 grid(G, (Sq + kRowTile - 1) / kRowTile);
+  const int d4 = D / 4;
+  const size_t smem = pass == 0 ? smem_sums(bk, d4) : smem_probv(d4);
+  const void* fn = pass == 0 ? (const void*)contiguous_sums
+                             : (const void*)contiguous_probv;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (pass == 0) {
+    contiguous_sums<<<grid, kThreads, smem, s>>>(p);
+  } else {
+    contiguous_probv<<<grid, kThreads, smem, s>>>(p);
   }
   return (int)cudaGetLastError();
 }

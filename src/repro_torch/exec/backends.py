@@ -1,11 +1,14 @@
-"""Backend registrations for the op slots of the paged serving path.
+"""Backend registrations for the op slots of the serving paths.
 
 The port of `repro.exec.backends`, restricted to what
-``ExecConfig.serving()`` resolves on a decoder-only all-attention model
-served paged: matmul ``digital``/``raceit_int`` (resident int8 weights go
-through `_resident_matmul` in both), activation ``digital``/``raceit_lut``,
-attention_decode ``digital``/``raceit_fused_paged``/``raceit_gqa_paged``,
-and lm_head ``digital``. Names and capability predicates are the
+``ExecConfig.serving()`` and the digital baseline resolve on a decoder-only
+all-attention model, served paged, bucketed or solo: matmul
+``digital``/``raceit_int`` (resident int8 weights go through
+`_resident_matmul` in both), activation ``digital``/``raceit_lut``,
+attention_prefill ``digital``/``raceit_fused``, the attention_decode fused
+family (``raceit_fused``, ``raceit_gqa_native``, the per-row ``*_rows`` and
+the paged ``*_paged``, which serve contiguous callers too) and ``digital``,
+and lm_head ``digital``. Names, notes and capability predicates are the
 reference's, so both packages resolve the same plan.
 """
 from __future__ import annotations
@@ -20,6 +23,12 @@ from ..models.layers import NEG_INF, QuantizedWeight
 from .registry import register
 
 _FUSED_SOFTMAX_MODES = ("pot", "pot_fine", "uniform")
+
+# past this key length the raceit attention formulations have always
+# degraded to the chunked float path (a runtime shape rule)
+RACEIT_ATTENTION_MAX_KEYS = 4096
+_SEQ_NOTE = (f"falls back to the digital path beyond "
+             f"Sk={RACEIT_ATTENTION_MAX_KEYS}")
 
 
 def _fused_supported(model_cfg, exec_cfg):
@@ -134,11 +143,70 @@ def _activation_raceit_lut(plan, x, name=None):
 
 
 # ---------------------------------------------------------------------------
+# attention_prefill (full / prefill attention)
+# ---------------------------------------------------------------------------
+# Interface: impl(plan, q, k, v, *, scale, q_offset, kind, window, chunk,
+#   probs_dtype, pad_lens); q (B, Sq, H, hd); k/v (B, Sk, KV, hd); kind in
+#   ("bidir", "causal") here; pad_lens (B,) int32 marks each row's left-pad
+#   key prefix (bucketed serving), masked on top of the structural mask.
+
+def _mask_fn(kind: str, sk: int, q_offset, window: int):
+    if kind == "bidir":
+        return lambda qi, ki: ki < sk + 0 * qi
+    if kind == "causal":
+        return lambda qi, ki: ki <= qi + q_offset
+    raise NotImplementedError(f"mask kind {kind!r} is not ported yet")
+
+
+def _mask_array(kind, b, sq, sk, q_offset, window, pad_lens=None,
+                device=None):
+    msk = _mask_fn(kind, sk, q_offset, window)(
+        torch.arange(sq, device=device)[:, None],
+        torch.arange(sk, device=device)[None, :])
+    msk = msk.expand(b, sq, sk)
+    if pad_lens is not None:  # left-pad keys do not exist for their row
+        msk = msk & (torch.arange(sk, device=device)[None, None, :]
+                     >= pad_lens[:, None, None])
+    return msk
+
+
+@register("attention_prefill", "digital")
+def _prefill_digital(plan, q, k, v, *, scale, q_offset, kind, window, chunk,
+                     probs_dtype=None, pad_lens=None):
+    if probs_dtype is None:
+        probs_dtype = layers._probs_dtype(plan.model_cfg)
+    sk = k.shape[1]
+    mask_fn = _mask_fn(kind, sk, q_offset, window)
+    return layers._chunked_attention(q, k, v, mask_fn, min(chunk, sk), scale,
+                                     probs_dtype, pad_lens=pad_lens)
+
+
+@register("attention_prefill", "raceit_fused", supported=_fused_supported,
+          notes=_SEQ_NOTE)
+def _prefill_raceit_fused(plan, q, k, v, *, scale, q_offset, kind, window,
+                          chunk, probs_dtype=None, pad_lens=None):
+    sk = k.shape[1]
+    if sk > RACEIT_ATTENTION_MAX_KEYS:
+        return _prefill_digital(plan, q, k, v, scale=scale, q_offset=q_offset,
+                                kind=kind, window=window, chunk=chunk,
+                                probs_dtype=probs_dtype, pad_lens=pad_lens)
+    if kind == "causal" and pad_lens is None:
+        # plain causal: the kernel masks from row and key indices, so no mask
+        # of score shape is built (padded buckets need the per-row mask)
+        return layers._raceit_fused_attention(q, k, v, None, scale, plan,
+                                              causal_offset=q_offset)
+    mask = _mask_array(kind, q.shape[0], q.shape[1], sk, q_offset, window,
+                       pad_lens, device=q.device)
+    return layers._raceit_fused_attention(q, k, v, mask, scale, plan)
+
+
+# ---------------------------------------------------------------------------
 # attention_decode (Sq=1 decode steps and Sq=C chunked-prefill steps)
 # ---------------------------------------------------------------------------
 # Interface: impl(plan, q, k, v, *, kv_len, scale, pad_valid[, block_table,
 #   page_size]); q (B, Sq, H, hd); k/v (B, Smax, KV, hd) contiguous rows or,
-#   with block_table, the (n_pages, page_size, KV, hd) pool.
+#   with block_table, the (n_pages, page_size, KV, hd) pool; kv_len a ()
+#   scalar or a (B,) vector of per-row fill levels (0 = an empty slot).
 
 def _decode_scores(q, k, kv_heads, scale):
     """Float decode scores in grouped-query layout: (B, KV, G, Sq, Smax)."""
@@ -176,21 +244,66 @@ def _decode_digital(plan, q, k, v, *, kv_len, scale, pad_valid=None):
     return _decode_combine(torch.softmax(s, dim=-1), v)
 
 
-def _contiguous_unported(*args, **kwargs):
-    raise NotImplementedError(
-        "the contiguous (non-paged) fused decode is not ported yet; serve "
-        "paged (block_table/page_size)")
+def _flatten_row_lens(k, kv_len, pad_valid):
+    """Degrade a per-row kv_len vector to the shared-max-fill contract of
+    the flat backends: every row decodes to the batch max, each row's tail
+    masked through the pad mask (stale entries stay inside the quantizer
+    window, masked rather than absent)."""
+    if kv_len.ndim == 0:
+        return kv_len, pad_valid
+    valid = torch.arange(k.shape[1], device=k.device)[None, :] < kv_len[:, None]
+    if pad_valid is not None and pad_valid.ndim == 3:  # per-query chunk mask
+        return kv_len.amax(), valid[:, None, :] & pad_valid
+    return kv_len.amax(), (valid if pad_valid is None else valid & pad_valid)
+
+
+@register("attention_decode", "raceit_fused", supported=_fused_supported,
+          notes="per-row kv_len vectors degrade to the shared max fill")
+def _decode_raceit_fused(plan, q, k, v, *, kv_len, scale, pad_valid=None):
+    kv_len, pad_valid = _flatten_row_lens(k, kv_len, pad_valid)
+    return layers._raceit_fused_decode(q, k, v, kv_len, scale, plan,
+                                       pad_valid=pad_valid)
+
+
+@register("attention_decode", "raceit_gqa_native",
+          supported=_gqa_native_supported,
+          notes="native (B*KV) cache layout; the rep queries sharing a KV "
+                "head ride one tile — no cache-code repeat in the hot loop")
+def _decode_raceit_gqa(plan, q, k, v, *, kv_len, scale, pad_valid=None):
+    kv_len, pad_valid = _flatten_row_lens(k, kv_len, pad_valid)
+    return layers._raceit_gqa_decode(q, k, v, kv_len, scale, plan,
+                                     pad_valid=pad_valid)
+
+
+@register("attention_decode", "raceit_fused_rows", supported=_fused_supported,
+          notes="per-row kv_len: every batch row decodes at its own cache "
+                "fill level (continuous batching); scalar kv_len callers "
+                "are served unchanged")
+def _decode_raceit_fused_rows(plan, q, k, v, *, kv_len, scale,
+                              pad_valid=None):
+    return layers._raceit_fused_decode(q, k, v, kv_len, scale, plan,
+                                       pad_valid=pad_valid)
+
+
+@register("attention_decode", "raceit_gqa_rows",
+          supported=_gqa_native_supported,
+          notes="per-row kv_len on the GQA-native cache layout — the "
+                "serving default for grouped-query configs")
+def _decode_raceit_gqa_rows(plan, q, k, v, *, kv_len, scale, pad_valid=None):
+    return layers._raceit_gqa_decode(q, k, v, kv_len, scale, plan,
+                                     pad_valid=pad_valid)
 
 
 @register("attention_decode", "raceit_fused_paged",
           supported=_fused_supported, paged=True,
-          notes="block-paged KV pool (block_table/page_size) on the CUDA "
-                "kernel csrc/acam_attention.cu")
+          notes="block-paged KV pool (block_table/page_size); contiguous "
+                "callers are served on the per-row flat kernel unchanged")
 def _decode_raceit_fused_paged(plan, q, k, v, *, kv_len, scale,
                                pad_valid=None, block_table=None,
                                page_size=None):
     if block_table is None:
-        _contiguous_unported()
+        return layers._raceit_fused_decode(q, k, v, kv_len, scale, plan,
+                                           pad_valid=pad_valid)
     return layers._raceit_paged_decode(q, k, v, kv_len, scale, plan,
                                        pad_valid=pad_valid,
                                        block_table=block_table, gqa=False)
@@ -204,7 +317,8 @@ def _decode_raceit_gqa_paged(plan, q, k, v, *, kv_len, scale,
                              pad_valid=None, block_table=None,
                              page_size=None):
     if block_table is None:
-        _contiguous_unported()
+        return layers._raceit_gqa_decode(q, k, v, kv_len, scale, plan,
+                                         pad_valid=pad_valid)
     # chunked-prefill steps (Sq > 1) ride the flat paged entry: the GQA
     # grid's row dimension carries the rep sharing queries
     return layers._raceit_paged_decode(q, k, v, kv_len, scale, plan,

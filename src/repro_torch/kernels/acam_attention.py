@@ -1,24 +1,31 @@
-"""The fused Fig.-12 RACE-IT attention on int8 codes over a block-paged pool.
+"""The fused Fig.-12 RACE-IT attention on int8 codes.
 
-The port of `repro.kernels.acam_attention` for the paged layout (the one
-serving runs). `acam_attention_codes` returns what the reference returns:
-``out`` (G, Sq, D) int32, the PROB-code . V accumulator, and ``cmax``, the
-call-wide max PROB code the caller rebuilds the probability scale from.
+The port of `repro.kernels.acam_attention`. `acam_attention_codes` returns
+what the reference returns: ``out`` (G, Sq, D) int32, the PROB-code . V
+accumulator, and ``cmax``, the call-wide max PROB code the caller rebuilds
+the probability scale from. Three layouts of the one TPU function
+(`_attn_kernel` and its one-tile twin `_attn_kernel_single`), each with a
+CUDA kernel and a plain PyTorch version in the reference's op order:
 
-Two implementations of one function live here:
+* block-paged k/v (``block_table`` given): ``csrc/acam_attention.cu``
+  ``pass_a``/``pass_b``, plain `acam_attention_codes_plain`;
+* contiguous k/v (G, Sk, D), two passes over key blocks of ``bk`` keys:
+  ``csrc/acam_attention.cu`` ``contiguous_sums``/``contiguous_probv``,
+  plain `acam_attention_contiguous_plain`;
+* contiguous k/v that fit one tile (the reference's ``ng == nq == nk == 1``:
+  G <= 8, Sq <= 256, Sk <= 512): ``csrc/acam_attention_single.cu``, one
+  launch, plain `acam_attention_single_plain`.
 
-* the CUDA kernel ``csrc/acam_attention.cu`` (two launches: pass A row sums
-  and the global cmax, pass B PROB codes . V), taken for CUDA tensors;
-* `acam_attention_codes_plain`, plain PyTorch in the reference's op order,
-  taken for CPU tensors. The CPU tests hold it bit for bit against the JAX
-  kernel, and the chip check holds the CUDA kernel against it.
-
-The wrapper picks by the device of its inputs alone: a CUDA tensor launches
-the kernel or raises, a CPU tensor runs the plain version.
+The shape rule alone picks between the last two, as in the reference. The
+wrapper picks by the device of its inputs alone: a CUDA tensor launches the
+kernel or raises, a CPU tensor runs the plain version. The CPU tests hold
+the plain versions bit for bit against the Pallas kernels, and the chip
+check holds each CUDA kernel against its plain version.
 
 Row coupling is part of the function, as in the reference: the call-wide
 cmax requantizes every row of the call, including the pad rows of slots that
-do not take part in a chunk call (zero-length groups excepted).
+do not take part in a chunk call and the fully masked rows of a left-padded
+prompt (zero-length groups excepted).
 """
 from __future__ import annotations
 
@@ -32,9 +39,11 @@ from ..core.ops import LOGIT_FMT, PROB_FMT
 from ..core.quant import PoTFormat, pot_decode_f32, pot_encode, recip_scale
 
 __all__ = ["acam_attention_codes", "acam_attention_codes_plain",
+           "acam_attention_contiguous_plain", "acam_attention_single_plain",
            "acam_attention_decode_codes", "acam_attention_decode_gqa_codes",
            "softmax_tables", "requant_scale", "requant_code_table",
-           "FUSED_SOFTMAX_MODES", "launches"]
+           "sum_chunks", "key_block", "one_tile", "FUSED_SOFTMAX_MODES",
+           "DEFAULT_BLOCK_Q", "DEFAULT_BLOCK_K", "DEFAULT_BLOCK_G", "launches"]
 
 FUSED_SOFTMAX_MODES = ("pot", "pot_fine", "uniform")
 
@@ -42,9 +51,17 @@ _EXP_OPS = {"pot": "exp_pot", "pot_fine": "exp_pot_fine",
             "uniform": "exp_uniform"}
 _LOG_OPS = {"pot": "log", "pot_fine": "log_fine", "uniform": "log"}
 
-# kernel launches, one count per launch (a call launches pass A and pass B);
-# a run resets it and reads it back to prove the path went through the kernel
-launches = {"acam_attention": 0}
+# the reference's tile sizes (its serving path never overrides them)
+DEFAULT_BLOCK_Q = 256
+DEFAULT_BLOCK_K = 512
+DEFAULT_BLOCK_G = 8
+_LANES = 128
+
+# kernel launches, one count per launch (a two-pass call launches twice, a
+# one-tile call once); a run resets them and reads them back to prove the
+# path went through the kernels
+launches = {"acam_attention_paged": 0, "acam_attention": 0,
+            "acam_attention_single": 0}
 
 _F32 = np.float32
 
@@ -104,25 +121,130 @@ def requant_code_table(cmax: torch.Tensor, prob_lut: torch.Tensor) -> torch.Tens
                        -128, 127).to(torch.int32)
 
 
+
+
 def _check_page_size(page_size: int) -> None:
-    # the row sum adds each page's keys in the reference's reduction order,
-    # which is known for runs of <= 32 keys and for multiples of 32
+    # the paged kernel adds each page's keys in runs of 32 (`sum_chunks`
+    # of a page), which is the reference's order for these sizes
     if not (page_size <= 32 or page_size % 32 == 0):
         raise ValueError(f"page_size must be <= 32 or a multiple of 32 "
                          f"(the row-sum order), got {page_size}")
 
 
+def sum_chunks(n: int) -> list:
+    """How XLA's CPU backend sums one key block of ``n`` keys: a list of
+    runs, each added key by key, the run totals then added in order.
+
+    Runs of 32; when n is not a multiple of 32 the first run and the
+    remainder are split into two halves, the larger first (n = 32m + r,
+    0 < r < 32, m >= 1: [ceil((32+r)/2)] + [32]*(m-1) + [floor((32+r)/2)]).
+    Measured on the interpret-mode kernels for every n up to 1024; blocks
+    never exceed 512 keys.
+    """
+    m, r = divmod(n, 32)
+    if m == 0:
+        return [n]
+    if r == 0:
+        return [32] * m
+    return [(32 + r + 1) // 2] + [32] * (m - 1) + [(32 + r) // 2]
+
+
 def _block_sum(e: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis in XLA's CPU order: runs of 32 keys added one
-    by one, then the runs in order."""
-    n = e.shape[-1]
-    total = None
-    for t0 in range(0, n, 32):
+    """Sum over the last axis in the reference's order (`sum_chunks`)."""
+    total, t0 = None, 0
+    for n in sum_chunks(e.shape[-1]):
         s = e[..., t0]
-        for t in range(t0 + 1, min(t0 + 32, n)):
+        for t in range(t0 + 1, t0 + n):
             s = s + e[..., t]
         total = s if total is None else total + s
+        t0 += n
     return total
+
+
+def key_block(Sk: int) -> int:
+    """Keys per block of the contiguous layout (the reference's ``bk``)."""
+    return min(DEFAULT_BLOCK_K, max(_LANES, Sk))
+
+
+def one_tile(G: int, Sq: int, Sk: int) -> bool:
+    """The reference's one-tile rule (``ng == nq == nk == 1``, not paged)."""
+    bg = min(DEFAULT_BLOCK_G, G)
+    bq = min(DEFAULT_BLOCK_Q, max(8, Sq))
+    return -(-G // bg) == 1 and -(-Sq // bq) == 1 and -(-Sk // key_block(Sk)) == 1
+
+
+def _logit_codes(q, k, s1, mask, causal, q_offset):
+    """matmul-1 + div-add: (G, Sq, Sk) LOGIT codes, masked keys at the LOGIT
+    minimum. ``mask`` (Gm, Sq, Sk) serves G // Gm consecutive groups per row;
+    else ``causal`` masks key kpos of row i when kpos > i + q_offset. The
+    integer products run in float64, exact for these ranges on any device."""
+    G, Sq, _ = q.shape
+    dev = q.device
+    r = torch.bmm(q.double(), k.double().transpose(1, 2))
+    logits = r.float() * s1.float()
+    xc = torch.clamp(torch.round(logits / LOGIT_FMT.scale), LOGIT_FMT.code_min,
+                     LOGIT_FMT.code_max).to(torch.int32)
+    if mask is not None:
+        g = torch.arange(G, device=dev)
+        m = mask[g // (G // mask.shape[0])] != 0
+    elif causal:
+        kpos = torch.arange(k.shape[1], device=dev)
+        qpos = torch.arange(Sq, device=dev)
+        # a Python offset stays a Python number: a host-to-device copy
+        # would wait for the stream
+        off = (q_offset.to(device=dev, dtype=torch.int32)
+               if isinstance(q_offset, torch.Tensor) else int(q_offset))
+        m = (kpos[None, :] <= qpos[:, None] + off)[None]
+    else:
+        return xc
+    return torch.where(m, xc, torch.full_like(xc, LOGIT_FMT.code_min))
+
+
+def _row_finish(S, xmax, lens, per_row, log_lut, prob_lut, e_min, step, fs,
+                cmax_floor):
+    """LOG(S), the rows' max PROB codes and the call-wide cmax."""
+    L = log_lut[pot_encode(S, e_min, step).long()]
+    dmax = torch.clamp(xmax - L * (1 << fs), LOGIT_FMT.code_min,
+                       LOGIT_FMT.code_max)
+    c_row = prob_lut[(dmax + 128).long()]
+    if per_row:  # zero-length groups: all-zero rows, no cmax contribution
+        c_row = torch.where(lens[:, None] > 0, c_row, torch.zeros_like(c_row))
+    dev = S.device
+    floor = (torch.zeros((), dtype=torch.int32, device=dev) if cmax_floor is None
+             else torch.as_tensor(cmax_floor, dtype=torch.int32, device=dev))
+    return L, torch.maximum(c_row.amax(), floor)
+
+
+def _prob_v(xc, valid, L, fs, cmax, prob_lut, v):
+    """d = x - LOG(S)<<fs -> requantized PROB codes -> int32 product with V."""
+    d = torch.clamp(xc - (L * (1 << fs))[..., None], LOGIT_FMT.code_min,
+                    LOGIT_FMT.code_max)
+    pc = requant_code_table(cmax, prob_lut)[(d + 128).long()]
+    pc = torch.where(valid, pc, torch.zeros_like(pc))
+    return torch.bmm(pc.double(), v.double()).to(torch.int32)
+
+
+def _two_pass_plain(q, k, v, s1, mask, lens, per_row, mode, cmax_floor,
+                    q_offset, causal, bk):
+    """The streaming kernel's function on logical (G, Sk, D) keys: the row
+    sum adds per-block sums of ``bk`` keys in block order."""
+    exp_val, log_lut, prob_lut, e_min, step, fs = _device_tables(mode, q.device)
+    Sk = k.shape[1]
+    xc = _logit_codes(q, k, s1, mask, causal, q_offset)
+    valid = torch.arange(Sk, device=q.device)[None, None, :] < lens[:, None, None]
+    e = torch.where(valid, exp_val[(xc + 128).long()],
+                    torch.zeros((), device=q.device))
+    pad = (-Sk) % bk  # the last block's missing keys add exact zeros
+    if pad:
+        e = torch.nn.functional.pad(e, (0, pad))
+    S = torch.zeros(xc.shape[:2], dtype=torch.float32, device=q.device)
+    for j in range(e.shape[-1] // bk):
+        S = S + _block_sum(e[..., j * bk:(j + 1) * bk])
+    xmax = torch.where(valid, xc, torch.full_like(xc, LOGIT_FMT.code_min)
+                       ).amax(-1)
+    L, cmax = _row_finish(S, xmax, lens, per_row, log_lut, prob_lut, e_min,
+                          step, fs, cmax_floor)
+    return _prob_v(xc, valid, L, fs, cmax, prob_lut, v), cmax.to(torch.int32)
 
 
 def acam_attention_codes_plain(q_codes, k_codes, v_codes, logit_scale,
@@ -130,131 +252,288 @@ def acam_attention_codes_plain(q_codes, k_codes, v_codes, logit_scale,
                                groups_per_slot, cmax_floor=None):
     """Plain PyTorch version of the paged kernel, in the reference's op order.
 
-    Arguments as in `acam_attention_codes` (already checked). The integer
-    products run in float64, exact for these ranges on any device.
+    Arguments as in `acam_attention_codes` (already checked). Pages are
+    gathered into logical order; each page is one key block.
     """
+    G = q_codes.shape[0]
+    gps = groups_per_slot
+    max_pages = block_table.shape[1]
+    g = torch.arange(G, device=q_codes.device)
+    rows = (block_table.long()[g // gps] * gps + (g % gps)[:, None])  # (G, mp)
+    kg = k_codes[rows].reshape(G, max_pages * page_size, -1)
+    vg = v_codes[rows].reshape(G, max_pages * page_size, -1)
+    return _two_pass_plain(q_codes, kg, vg, logit_scale, mask,
+                           kv_len.to(torch.int32), True, mode, cmax_floor, 0,
+                           False, page_size)
+
+
+def acam_attention_contiguous_plain(q_codes, k_codes, v_codes, logit_scale,
+                                    mask, lens, per_row, mode, cmax_floor,
+                                    q_offset, causal):
+    """Plain PyTorch version of the contiguous two-pass kernel.
+
+    ``lens`` (G,) int32 valid keys per group (<= Sk); ``per_row`` says they
+    came as a per-group vector, whose zero entries give zero rows."""
+    return _two_pass_plain(q_codes, k_codes, v_codes, logit_scale, mask, lens,
+                           per_row, mode, cmax_floor, q_offset, causal,
+                           key_block(k_codes.shape[1]))
+
+
+def acam_attention_single_plain(q_codes, k_codes, v_codes, logit_scale,
+                                mask, lens, per_row, mode, cmax_floor,
+                                q_offset, causal):
+    """Plain PyTorch version of the one-tile kernel, `_attn_kernel_single`
+    step by step: the logit codes of the whole tile, one row-sum reduction
+    over all ``Skp`` keys (the padded tile), the call-wide cmax, then
+    PROB . V; no scratch, no second key sweep."""
     exp_val, log_lut, prob_lut, e_min, step, fs = _device_tables(
         mode, q_codes.device)
-    G, Sq, D = q_codes.shape
-    dev = q_codes.device
-    ps, gps = page_size, groups_per_slot
-    max_pages = block_table.shape[1]
-    Sk = max_pages * ps
-    g = torch.arange(G, device=dev)
-    rows = (block_table.long()[g // gps] * gps + (g % gps)[:, None])  # (G, mp)
-    kg = k_codes[rows].reshape(G, Sk, D)
-    vg = v_codes[rows].reshape(G, Sk, D)
-    r = torch.bmm(q_codes.double(), kg.double().transpose(1, 2))
-    logits = r.float() * logit_scale.float()
-    xc = torch.clamp(torch.round(logits / LOGIT_FMT.scale), LOGIT_FMT.code_min,
-                     LOGIT_FMT.code_max).to(torch.int32)
-    if mask is not None:
-        m = mask[g // (G // mask.shape[0])] != 0
-        xc = torch.where(m, xc, torch.full_like(xc, LOGIT_FMT.code_min))
-    lens = kv_len.to(torch.int32)[:, None, None]
-    valid = torch.arange(Sk, device=dev)[None, None, :] < lens
-    e = torch.where(valid, exp_val[(xc + 128).long()], torch.zeros((), device=dev))
-    S = torch.zeros((G, Sq), dtype=torch.float32, device=dev)
-    for j in range(max_pages):
-        S = S + _block_sum(e[..., j * ps:(j + 1) * ps])
-    xmax = torch.where(valid, xc, torch.full_like(xc, LOGIT_FMT.code_min)).amax(-1)
-    L = log_lut[pot_encode(S, e_min, step).long()]
-    dmax = torch.clamp(xmax - L * (1 << fs), LOGIT_FMT.code_min, LOGIT_FMT.code_max)
-    c_row = prob_lut[(dmax + 128).long()]
-    c_row = torch.where(lens[:, :, 0] > 0, c_row, torch.zeros_like(c_row))
-    floor = (torch.zeros((), dtype=torch.int32, device=dev) if cmax_floor is None
-             else torch.as_tensor(cmax_floor, dtype=torch.int32, device=dev))
-    cmax = torch.maximum(c_row.amax(), floor)
-    d = torch.clamp(xc - (L * (1 << fs))[..., None], LOGIT_FMT.code_min,
-                    LOGIT_FMT.code_max)
-    pc = requant_code_table(cmax, prob_lut)[(d + 128).long()]
-    pc = torch.where(valid, pc, torch.zeros_like(pc))
-    out = torch.bmm(pc.double(), vg.double()).to(torch.int32)
-    return out, cmax.to(torch.int32)
+    Sk = k_codes.shape[1]
+    skp = key_block(Sk)
+    xc = _logit_codes(q_codes, k_codes, logit_scale, mask, causal, q_offset)
+    valid = (torch.arange(Sk, device=q_codes.device)[None, None, :]
+             < lens[:, None, None])
+    e = torch.where(valid, exp_val[(xc + 128).long()],
+                    torch.zeros((), device=q_codes.device))
+    S = _block_sum(torch.nn.functional.pad(e, (0, skp - Sk)))
+    xmax = torch.where(valid, xc, torch.full_like(xc, LOGIT_FMT.code_min)
+                       ).amax(-1)
+    L, cmax = _row_finish(S, xmax, lens, per_row, log_lut, prob_lut, e_min,
+                          step, fs, cmax_floor)
+    return (_prob_v(xc, valid, L, fs, cmax, prob_lut, v_codes),
+            cmax.to(torch.int32))
 
 
-def _launch_kernel(q_codes, k_codes, v_codes, logit_scale, mask, kv_len, mode,
-                   block_table, page_size, groups_per_slot, cmax_floor):
+def _bind(lib_name: str, fn_name: str, argtypes):
     import ctypes
 
     from .build import library  # built at first launch, never at import
-    lib = library("acam_attention")
-    fn = lib.acam_attention_paged_launch
+    fn = getattr(library(lib_name), fn_name)
     if fn.argtypes is None:
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [I, P, P, P, P, P, P, I, P, P, P, P, P, P, P,
-                       I, I, I, I, I, I, F, F, F, F, I, P]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    return fn
+
+
+def _pot_consts(e_min: float, step: float):
+    return (float(_F32(e_min)), float(_F32(1.0 / step)),
+            float(_F32(2.0 ** (e_min - 1))),
+            float(_F32(2.0 ** (e_min - step / 2))))
+
+
+def _cmax_cell(cmax_floor, dev):
+    if cmax_floor is None:
+        return torch.zeros((1,), dtype=torch.int32, device=dev)
+    return torch.as_tensor(cmax_floor, dtype=torch.int32,
+                           device=dev).reshape(1).clone()
+
+
+def _launch_paged(q_codes, k_codes, v_codes, logit_scale, mask, kv_len, mode,
+                  block_table, page_size, groups_per_slot, cmax_floor):
+    import ctypes
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = _bind("acam_attention", "acam_attention_paged_launch",
+               [I, P, P, P, P, P, P, I, P, P, P, P, P, P, P,
+                I, I, I, I, I, I, F, F, F, F, I, P])
     dev = q_codes.device
     exp_val, log_lut, prob_lut, e_min, step, fs = _device_tables(mode, dev)
     G, Sq, D = q_codes.shape
     max_pages = block_table.shape[1]
     out = torch.empty((G, Sq, D), dtype=torch.int32, device=dev)
     row_sum = torch.empty((G * Sq,), dtype=torch.float32, device=dev)
-    if cmax_floor is None:
-        cmax = torch.zeros((1,), dtype=torch.int32, device=dev)
-    else:
-        cmax = torch.as_tensor(cmax_floor, dtype=torch.int32,
-                               device=dev).reshape(1).clone()
+    cmax = _cmax_cell(cmax_floor, dev)
     s1 = logit_scale.to(torch.float32).reshape(1).contiguous()
     mask_ptr, mask_div = None, 1
     if mask is not None:
         mask_ptr, mask_div = mask.data_ptr(), G // mask.shape[0]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    consts = (float(_F32(e_min)), float(_F32(1.0 / step)),
-              float(_F32(2.0 ** (e_min - 1))),
-              float(_F32(2.0 ** (e_min - step / 2))))
     for pass_id in (0, 1):
         err = fn(pass_id, q_codes.data_ptr(), k_codes.data_ptr(),
                  v_codes.data_ptr(), block_table.data_ptr(), kv_len.data_ptr(),
                  mask_ptr, mask_div, s1.data_ptr(), exp_val.data_ptr(),
                  log_lut.data_ptr(), prob_lut.data_ptr(), out.data_ptr(),
                  row_sum.data_ptr(), cmax.data_ptr(), G, Sq, D, page_size,
-                 max_pages, groups_per_slot, *consts, fs, stream)
+                 max_pages, groups_per_slot, *_pot_consts(e_min, step), fs,
+                 stream)
         if err != 0:
             raise RuntimeError(f"acam_attention pass {'AB'[pass_id]} launch "
                                f"failed: cudaError {err}")
+        launches["acam_attention_paged"] += 1
+    return out, cmax.reshape(())
+
+
+def _contiguous_args(q_codes, logit_scale, mask, q_offset, mode):
+    """The pointer and constant arguments both contiguous launches share,
+    and the small tensors behind them (kept alive by the caller)."""
+    dev = q_codes.device
+    exp_val, log_lut, prob_lut, e_min, step, fs = _device_tables(mode, dev)
+    s1 = logit_scale.to(torch.float32).reshape(1).contiguous()
+    # a Python offset becomes a fill on the card, never a host-to-device copy
+    # (which would wait for the stream)
+    qoff = (q_offset.to(device=dev, dtype=torch.int32).reshape(1)
+            if isinstance(q_offset, torch.Tensor)
+            else torch.full((1,), int(q_offset), dtype=torch.int32, device=dev))
+    mask_ptr, mask_div = None, 1
+    if mask is not None:
+        mask_ptr, mask_div = mask.data_ptr(), q_codes.shape[0] // mask.shape[0]
+    args = (mask_ptr, mask_div, s1.data_ptr(), qoff.data_ptr(),
+            exp_val.data_ptr(), log_lut.data_ptr(), prob_lut.data_ptr())
+    return (s1, qoff), args, (*_pot_consts(e_min, step), fs)
+
+
+def _launch_contiguous(q_codes, k_codes, v_codes, logit_scale, mask, lens,
+                       per_row, mode, cmax_floor, q_offset, causal):
+    import ctypes
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = _bind("acam_attention", "acam_attention_contiguous_launch",
+               [I, P, P, P, P, P, I, P, P, P, P, P, P, P, P,
+                I, I, I, I, I, I, I, F, F, F, F, I, P])
+    dev = q_codes.device
+    G, Sq, D = q_codes.shape
+    Sk = k_codes.shape[1]
+    _alive, args, consts = _contiguous_args(q_codes, logit_scale, mask,
+                                            q_offset, mode)
+    out = torch.empty((G, Sq, D), dtype=torch.int32, device=dev)
+    row_sum = torch.empty((G * Sq,), dtype=torch.float32, device=dev)
+    cmax = _cmax_cell(cmax_floor, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for pass_id in (0, 1):
+        err = fn(pass_id, q_codes.data_ptr(), k_codes.data_ptr(),
+                 v_codes.data_ptr(), lens.data_ptr(), *args, out.data_ptr(),
+                 row_sum.data_ptr(), cmax.data_ptr(), G, Sq, Sk, D,
+                 key_block(Sk), int(causal), int(per_row), *consts, stream)
+        if err != 0:
+            raise RuntimeError(f"acam_attention contiguous pass "
+                               f"{'AB'[pass_id]} launch failed: cudaError "
+                               f"{err}")
         launches["acam_attention"] += 1
     return out, cmax.reshape(())
 
 
+def _launch_single(q_codes, k_codes, v_codes, logit_scale, mask, lens,
+                   per_row, mode, cmax_floor, q_offset, causal):
+    import ctypes
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = _bind("acam_attention_single", "acam_attention_single_launch",
+               [P, P, P, P, P, I, P, P, P, P, P, P, P,
+                I, I, I, I, I, I, I, F, F, F, F, I, P])
+    dev = q_codes.device
+    G, Sq, D = q_codes.shape
+    Sk = k_codes.shape[1]
+    _alive, args, consts = _contiguous_args(q_codes, logit_scale, mask,
+                                            q_offset, mode)
+    out = torch.empty((G, Sq, D), dtype=torch.int32, device=dev)
+    cmax = _cmax_cell(cmax_floor, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(q_codes.data_ptr(), k_codes.data_ptr(), v_codes.data_ptr(),
+             lens.data_ptr(), *args, out.data_ptr(), cmax.data_ptr(), G, Sq,
+             Sk, D, key_block(Sk), int(causal), int(per_row), *consts, stream)
+    if err != 0:
+        raise RuntimeError(f"acam_attention_single launch failed: cudaError "
+                           f"{err}")
+    launches["acam_attention_single"] += 1
+    return out, cmax.reshape(())
+
+
+def _check_operands(named, dev):
+    for name, t, dt in named:
+        if t.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_cuda_head_dim(D: int) -> None:
+    if D % 4 or D > 128:
+        raise ValueError(f"the CUDA kernels take head dims that are a "
+                         f"multiple of 4 up to 128, got {D}")
+
+
 def acam_attention_codes(
-    q_codes: torch.Tensor,   # (G, Sq, D) int8 — G folds slots x groups
-    k_codes: torch.Tensor,   # (n_pages * groups_per_slot, page_size, D) int8
-    v_codes: torch.Tensor,   # (n_pages * groups_per_slot, page_size, D) int8
+    q_codes: torch.Tensor,   # (G, Sq, D) int8 — G folds batch x heads
+    k_codes: torch.Tensor,   # (G, Sk, D) int8, or the paged pool
+    v_codes: torch.Tensor,   # like k_codes
     logit_scale: torch.Tensor,           # () f32: s_q * s_k (1/sqrt(d) folded)
     mask: Optional[torch.Tensor] = None,  # (Gm, Sq, Sk) bool/int8, 0 = masked
-    kv_len: Optional[torch.Tensor] = None,  # (G,) int32 valid keys per group
+    kv_len=None,             # None, () or (G,) int32 valid keys
     mode: str = "pot",
     block_table: Optional[torch.Tensor] = None,  # (n_slots, max_pages) int32
     page_size: Optional[int] = None,
     groups_per_slot: Optional[int] = None,
     cmax_floor=None,                     # () int32: external PROB-max seed
+    q_offset=0,              # () int: causal offset of row 0 (cache index)
+    causal: bool = False,    # in-kernel causal mask (no mask array)
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Fused Fig.-12 attention on int8 codes over a block-paged KV pool.
+    """Fused Fig.-12 attention on int8 codes, contiguous or block-paged k/v.
 
-    Physical page ``p`` of the pool holds the ``groups_per_slot`` group
-    stripes of one logical page at rows ``[p*gps, (p+1)*gps)``, and
-    ``block_table[slot, j]`` names the page backing slot ``slot``'s logical
-    page ``j`` (page 0 is the trash page; every entry must lie in the pool).
-    Keys past ``kv_len[g]`` do not exist for group ``g``; zero-length
-    groups give zero rows and leave cmax alone. A masked key stays in the
-    row sum at the LOGIT minimum. ``mask`` may carry one row per
+    Keys past ``kv_len`` (a scalar, or one length per group) do not exist:
+    no exp weight, no PROB max, no product with V; zero-length groups of a
+    (G,) vector give zero rows and leave cmax alone. A masked key stays in
+    the row sum at the LOGIT minimum. ``mask`` may carry one row per
     ``G // Gm`` consecutive groups: ``Gm == G`` is the reference's form,
-    and both float wrappers pass one mask per slot (``Gm == n_slots``)
-    rather than copy it to every group.
+    and the float wrappers pass one mask per batch row rather than copy it
+    to every group. Without a mask, ``causal`` lets row i attend keys
+    ``<= i + q_offset``.
+
+    **Paged** (``block_table`` given): physical page ``p`` of the pool holds
+    the ``groups_per_slot`` group stripes of one logical page at rows
+    ``[p*gps, (p+1)*gps)``, and ``block_table[slot, j]`` names the page
+    backing slot ``slot``'s logical page ``j`` (page 0 is the trash page);
+    ``kv_len`` must be a (G,) vector.
+
     Returns (out (G, Sq, D) int32, cmax () int32).
     """
-    if block_table is None:
-        raise NotImplementedError(
-            "only the block-paged layout is ported; the contiguous and "
-            "one-tile variants come with the solo generate path")
+    if mode not in FUSED_SOFTMAX_MODES:
+        raise ValueError(f"mode must be one of {FUSED_SOFTMAX_MODES}, got {mode!r}")
+    G, Sq, D = q_codes.shape
+    dev = q_codes.device
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"no implementation for device {dev}")
+    if block_table is not None:
+        return _paged_codes(q_codes, k_codes, v_codes, logit_scale, mask,
+                            kv_len, mode, block_table, page_size,
+                            groups_per_slot, cmax_floor)
+    if k_codes.ndim != 3 or k_codes.shape[0] != G or k_codes.shape[2] != D \
+            or v_codes.shape != k_codes.shape:
+        raise ValueError(f"contiguous k/v must be ({G}, Sk, {D}), got "
+                         f"{tuple(k_codes.shape)} / {tuple(v_codes.shape)}")
+    _check_operands((("q", q_codes, torch.int8), ("k", k_codes, torch.int8),
+                     ("v", v_codes, torch.int8)), dev)
+    Sk = k_codes.shape[1]
+    per_row = isinstance(kv_len, torch.Tensor) and kv_len.ndim == 1
+    if not isinstance(kv_len, torch.Tensor):  # None or a Python length
+        lens = torch.full((G,), Sk if kv_len is None else min(int(kv_len), Sk),
+                          dtype=torch.int32, device=dev)
+    else:
+        kvl = kv_len.to(device=dev, dtype=torch.int32)
+        if per_row and kvl.shape[0] != G:
+            raise ValueError(f"per-group kv_len must have one entry per "
+                             f"group: got {tuple(kvl.shape)} for G={G}")
+        lens = torch.clamp(kvl, max=Sk).expand(G).contiguous()
+    if mask is not None:
+        if mask.ndim != 3 or mask.shape[1:] != (Sq, Sk) or G % mask.shape[0]:
+            raise ValueError(f"mask must be (Gm, {Sq}, {Sk}) with Gm | {G}, "
+                             f"got {tuple(mask.shape)}")
+        mask = mask.to(device=dev, dtype=torch.int8).contiguous()
+    single = one_tile(G, Sq, Sk)
+    if dev.type == "cuda":
+        _check_cuda_head_dim(D)
+        impl = _launch_single if single else _launch_contiguous
+    else:
+        impl = (acam_attention_single_plain if single
+                else acam_attention_contiguous_plain)
+    return impl(q_codes, k_codes, v_codes, logit_scale, mask, lens, per_row,
+                mode, cmax_floor, q_offset, causal)
+
+
+def _paged_codes(q_codes, k_codes, v_codes, logit_scale, mask, kv_len, mode,
+                 block_table, page_size, groups_per_slot, cmax_floor):
     if page_size is None or groups_per_slot is None:
         raise ValueError("paged attention needs page_size and groups_per_slot")
     if kv_len is None or kv_len.ndim != 1:
         raise ValueError("paged attention requires a per-group (G,) kv_len")
-    if mode not in FUSED_SOFTMAX_MODES:
-        raise ValueError(f"mode must be one of {FUSED_SOFTMAX_MODES}, got {mode!r}")
     _check_page_size(page_size)
     G, Sq, D = q_codes.shape
     gps = groups_per_slot
@@ -268,16 +547,10 @@ def acam_attention_codes(
                 or t.shape[0] % gps:
             raise ValueError(f"paged {name} pool must be (n_pages*{gps}, "
                              f"{page_size}, {D}), got {tuple(t.shape)}")
-    for name, t, dt in (("q", q_codes, torch.int8), ("k", k_codes, torch.int8),
-                        ("v", v_codes, torch.int8),
-                        ("block_table", block_table, torch.int32),
-                        ("kv_len", kv_len, torch.int32)):
-        if t.dtype != dt:
-            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, q on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _check_operands((("q", q_codes, torch.int8), ("k", k_codes, torch.int8),
+                     ("v", v_codes, torch.int8),
+                     ("block_table", block_table, torch.int32),
+                     ("kv_len", kv_len, torch.int32)), dev)
     if kv_len.shape[0] != G:
         raise ValueError(f"kv_len must have one entry per group: "
                          f"{tuple(kv_len.shape)} for G={G}")
@@ -289,25 +562,22 @@ def acam_attention_codes(
                              f"got {tuple(mask.shape)}")
         mask = mask.to(torch.int8).contiguous()
     if dev.type == "cuda":
-        if D % 4 or D > 128:
-            raise ValueError(f"the CUDA kernel takes head dims that are a "
-                             f"multiple of 4 up to 128, got {D}")
-        return _launch_kernel(q_codes, k_codes, v_codes, logit_scale, mask,
-                              kv_len, mode, block_table, page_size, gps,
-                              cmax_floor)
-    if dev.type != "cpu":
-        raise ValueError(f"no implementation for device {dev}")
-    return acam_attention_codes_plain(q_codes, k_codes, v_codes, logit_scale,
-                                      mask, kv_len, mode, block_table,
-                                      page_size, gps, cmax_floor)
+        _check_cuda_head_dim(D)
+        impl = _launch_paged
+    else:
+        impl = acam_attention_codes_plain
+    return impl(q_codes, k_codes, v_codes, logit_scale, mask, kv_len, mode,
+                block_table, page_size, gps, cmax_floor)
 
 
 def acam_attention_decode_codes(q_codes, k_codes, v_codes, logit_scale, kv_len,
                                 mask=None, mode="pot", block_table=None,
                                 page_size=None, groups_per_slot=None,
                                 cmax_floor=None):
-    """Decode-mode entry (Sq = 1); the flat layout folds every query head of a
-    slot into its group stripe (``groups_per_slot`` defaults to G/n_slots)."""
+    """Decode-mode entry (Sq = 1) against a fixed-shape cache valid to
+    ``kv_len`` (scalar, or one length per group). Paged, the flat layout
+    folds every query head of a slot into its group stripe
+    (``groups_per_slot`` defaults to G / n_slots)."""
     if q_codes.shape[1] != 1:
         raise ValueError(f"decode path expects Sq=1, got {q_codes.shape[1]}")
     if block_table is not None and groups_per_slot is None:
@@ -324,9 +594,14 @@ def acam_attention_decode_gqa_codes(q_codes, k_codes, v_codes, logit_scale,
                                     block_table=None, page_size=None,
                                     groups_per_slot=None, cmax_floor=None):
     """GQA-native decode: one group per KV head, its ``rep`` sharing queries
-    on the row dimension (``groups_per_slot`` = KV)."""
-    if block_table is not None and groups_per_slot is None:
-        raise ValueError("GQA paged decode needs groups_per_slot (=KV)")
+    on the row dimension (paged: ``groups_per_slot`` = KV)."""
+    if block_table is not None:
+        if groups_per_slot is None:
+            raise ValueError("GQA paged decode needs groups_per_slot (=KV)")
+    elif k_codes.shape[0] != q_codes.shape[0]:
+        raise ValueError(
+            f"GQA decode expects q and k/v to share the group dim (B*KV): "
+            f"got q {tuple(q_codes.shape)} vs k {tuple(k_codes.shape)}")
     return acam_attention_codes(q_codes, k_codes, v_codes, logit_scale, mask,
                                 kv_len=kv_len, mode=mode,
                                 block_table=block_table, page_size=page_size,

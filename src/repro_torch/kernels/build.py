@@ -2,8 +2,8 @@
 
 Each ``src/repro_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for
 ``sm_90a`` into ``build/repro_torch/lib<name>-<digest>.so`` at the repository
-root (the digest covers the source and the flags, so an edited source never
-loads a stale library) and bound through ``ctypes``: every source exposes a
+root (the digest covers the source, the shared ``csrc/*.cuh`` headers and the
+flags, so an edited source never loads a stale library) and bound through ``ctypes``: every source exposes a
 plain C interface, so no PyTorch header is compiled. Nothing here runs when
 the package is imported; the first launch of a kernel builds its library.
 """
@@ -16,8 +16,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "library", "build_log",
-           "find_nvcc"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "library", "build_all",
+           "build_log", "find_nvcc"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -41,24 +41,12 @@ def find_nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = hashlib.sha256(h.digest() + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
-
-
-def _build(name: str) -> None:
-    out = _target(name)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(CSRC / f"{name}.cu")],
-                          capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
-                           f"{out.name}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
 
 
 def build_log(name: str) -> str:
@@ -67,11 +55,36 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
+def build_all(names) -> None:
+    """Build the libraries of ``names`` that are not built yet, one ``nvcc``
+    process per source, all started together."""
+    todo = [n for n in names if not _target(n).exists()]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name in todo:
+        out = _target(name)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs.append((name, out, tmp, subprocess.Popen(
+            [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+             str(CSRC / f"{name}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        out.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"{out.name} ({proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed building " + "\n".join(failed))
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
     if name not in _LIBS:
         out = _target(name)
         if not out.exists():
-            _build(name)
+            build_all([name])
         _LIBS[name] = ctypes.CDLL(str(out))
     return _LIBS[name]

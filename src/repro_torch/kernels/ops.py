@@ -1,10 +1,11 @@
 """Float wrappers over the attention kernel, and their quantizer helpers.
 
-The port of the paged part of `repro.kernels.ops`. The wrappers quantize
-float q (whole tensor) and the float KV page pool (per page, with one scale
-over the union of live page entries), run `acam_attention_codes`, and
-descale with the oracle's PROB requant scale. Every quantizer step follows
-the f32 op sequence of the reference's jitted graph.
+The port of the serving part of `repro.kernels.ops`. The paged wrappers
+quantize float q (whole tensor) and the float KV page pool (per page, with
+one scale over the union of live page entries), run `acam_attention_codes`,
+and descale with the oracle's PROB requant scale; the contiguous decode
+path quantizes the cache's valid prefix (`masked_prefix_quantize`). Every
+quantizer step follows the f32 op sequence of the reference's jitted graph.
 """
 from __future__ import annotations
 
@@ -17,14 +18,35 @@ from .acam_attention import (  # noqa: F401
     FUSED_SOFTMAX_MODES, acam_attention_codes, acam_attention_decode_codes,
     acam_attention_decode_gqa_codes, requant_scale)
 
-__all__ = ["prob_requant_scale", "page_valid_lengths", "masked_page_quantize",
-           "expand_row_lens", "raceit_attention_decode_paged",
+__all__ = ["prob_requant_scale", "masked_prefix_quantize",
+           "page_valid_lengths", "masked_page_quantize", "expand_row_lens",
+           "raceit_attention_decode_paged",
            "raceit_attention_decode_gqa_paged"]
 
 
 def prob_requant_scale(cmax: torch.Tensor) -> torch.Tensor:
     """The oracle's PROB re-quantization scale (see `requant_scale`)."""
     return requant_scale(cmax).float()
+
+
+def masked_prefix_quantize(x: torch.Tensor, kv_len, axis: int = 2):
+    """`quantize_tensor(x_sliced_to_kv_len, bits=8)` without slicing.
+
+    ``kv_len`` is a scalar (one prefix for the whole tensor) or a (B,)
+    vector of per-row prefixes along the leading batch dim; the scale
+    reduces over the union of the rows' valid prefixes, and entries past
+    each row's prefix get code 0. Returns (codes int8, scale f32).
+    """
+    shape = tuple(x.shape[axis] if d == axis else 1 for d in range(x.ndim))
+    idx = torch.arange(x.shape[axis], device=x.device).reshape(shape)
+    kvl = torch.as_tensor(kv_len, device=x.device).to(torch.int32)
+    if kvl.ndim == 1:  # per-row prefixes along the leading batch dim
+        kvl = kvl.reshape((-1,) + (1,) * (x.ndim - 1))
+    valid = idx < kvl
+    amax = torch.where(valid, x.abs(), torch.zeros((), device=x.device)).amax()
+    scale = recip_scale(amax, 127).float()
+    codes = torch.clamp(torch.round(x / scale), -128, 127).to(torch.int8)
+    return torch.where(valid, codes, torch.zeros_like(codes)), scale
 
 
 def page_valid_lengths(block_table: torch.Tensor, kv_len: torch.Tensor,
@@ -65,6 +87,12 @@ def expand_row_lens(kv_len: torch.Tensor, rep: int) -> torch.Tensor:
     """Per-request lengths (B,) -> per-group lengths (B*rep,), b-major."""
     kvl = kv_len.to(torch.int32)
     return torch.repeat_interleave(kvl, rep) if kvl.ndim == 1 else kvl
+
+
+def _decode_quantize_operands(q, k, v, kv_len):
+    """q whole-tensor int8; k/v int8 over their valid prefix (axis 2)."""
+    return (quantize_tensor(q, bits=8), masked_prefix_quantize(k, kv_len),
+            masked_prefix_quantize(v, kv_len))
 
 
 def _paged_quantize_operands(q, k_pool, v_pool, block_table, kv_len):

@@ -1,14 +1,16 @@
-"""Serving launcher of the port: the paged continuous batcher on the card.
+"""Serving launcher of the port, on the card.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-large \\
-      --mode raceit_q8 --continuous
+      --mode raceit_q8 [--continuous]
 
-The port of `repro.launch.serve` for ``--continuous`` on the block-paged
-path. Weights are made from ``--seed`` at the configuration's published
-width unless ``--ckpt`` names a reference checkpoint directory; ``--set``
-overrides config fields (e.g. ``n_layers=2`` for a shallow run). Runs on
-``--device`` (default ``cuda``; with no card it stops rather than fall back
-to the CPU).
+The port of `repro.launch.serve`: without ``--continuous`` requests are
+served in left-padded buckets of ``--slots`` by `BatchScheduler` over
+`GenerationEngine.generate` (the reference's default); with it, by the
+block-paged continuous batcher. Weights are made from ``--seed`` at the
+configuration's published width unless ``--ckpt`` names a reference
+checkpoint directory; ``--set`` overrides config fields (e.g.
+``n_layers=2`` for a shallow run). Runs on ``--device`` (default ``cuda``;
+with no card it stops rather than fall back to the CPU).
 """
 from __future__ import annotations
 
@@ -57,8 +59,8 @@ def main(argv=None):
                     help="reference checkpoint directory (leaves.npz + "
                          "meta.json), read without JAX")
     ap.add_argument("--continuous", action="store_true",
-                    help="serve with the paged continuous batcher (the only "
-                         "scheduler ported so far)")
+                    help="serve with the paged continuous batcher (default: "
+                         "bucketed batching)")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--page-size", type=int, default=64)
     ap.add_argument("--prefill-chunk", type=int, default=None)
@@ -75,9 +77,6 @@ def main(argv=None):
                     metavar="SLOT=BACKEND")
     ap.add_argument("--set", nargs="*", default=[])
     args = ap.parse_args(argv)
-    if not args.continuous:
-        raise SystemExit("the port serves through the paged continuous "
-                         "batcher only: add --continuous")
 
     import numpy as np
     import torch
@@ -86,7 +85,8 @@ def main(argv=None):
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ExecConfig
     from repro_torch.models import Model, quantize_model_params
-    from repro_torch.serve import ContinuousBatcher, GenerationEngine, Request
+    from repro_torch.serve import (BatchScheduler, ContinuousBatcher,
+                                   GenerationEngine, Request)
 
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 means f32
@@ -118,17 +118,28 @@ def main(argv=None):
     print("[serve] resolved execution plan:")
     print("\n".join("  " + line for line in eng.explain_plan().splitlines()))
     weights = parse_tenant_weights(args.tenant_weights)
-    sched = ContinuousBatcher(eng, n_slots=args.slots,
-                              page_size=args.page_size,
-                              prefill_chunk=args.prefill_chunk,
-                              router=args.router,
-                              tenant_weights=weights or None,
-                              tenant_cap=args.tenant_cap,
-                              prefix_cache=args.prefix_cache)
-    print(f"[serve] block-paged KV on {device}: page_size={sched.page_size}, "
-          f"prefill_chunk={sched.prefill_chunk}, {sched.n_pages} pages "
-          f"({sched.n_pages - 1} allocatable + trash); prefix cache "
-          f"{'on' if sched.prefix is not None else 'off'}")
+    if args.continuous:
+        sched = ContinuousBatcher(eng, n_slots=args.slots,
+                                  page_size=args.page_size,
+                                  prefill_chunk=args.prefill_chunk,
+                                  router=args.router,
+                                  tenant_weights=weights or None,
+                                  tenant_cap=args.tenant_cap,
+                                  prefix_cache=args.prefix_cache)
+        print(f"[serve] block-paged KV on {device}: page_size="
+              f"{sched.page_size}, prefill_chunk={sched.prefill_chunk}, "
+              f"{sched.n_pages} pages ({sched.n_pages - 1} allocatable + "
+              f"trash); prefix cache "
+              f"{'on' if sched.prefix is not None else 'off'}")
+    else:
+        if (args.router != "fifo" or weights or args.tenant_cap is not None
+                or args.prefix_cache is not None):
+            raise SystemExit("--router/--tenant-weights/--tenant-cap/"
+                             "--prefix-cache belong to the continuous "
+                             "batcher; add --continuous")
+        sched = BatchScheduler(eng, bucket_size=args.slots)
+        print(f"[serve] bucketed batching on {device}: buckets of "
+              f"{args.slots}, contiguous KV of {args.max_len}")
     tenants = sorted(weights) or ["default"]
     rng = np.random.default_rng(0)
     for rid in range(args.requests):
@@ -144,9 +155,14 @@ def main(argv=None):
                   f"step {r.error.step}: {r.error.reason}")
         else:
             print(f"[serve] req{rid}: {r.result.tolist()}")
-    s = sched.summary()
     occ = (sched.decode_tokens / sched.decode_steps
            if sched.decode_steps else float("nan"))
+    if not args.continuous:
+        print(f"[serve] bucketed: {sched.model_calls} model calls, "
+              f"{sched.decode_steps} decode steps, {occ:.2f} tokens/step "
+              f"occupancy")
+        return done
+    s = sched.summary()
     print(f"[serve] continuous: {sched.prefills} prefills, "
           f"{sched.chunk_calls} chunk calls, {sched.decode_steps} decode "
           f"steps, {occ:.2f} tokens/step occupancy")

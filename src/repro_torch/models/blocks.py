@@ -1,7 +1,7 @@
 """The layer stack: one parameter dict per layer, a Python loop over layers.
 
-The port of `repro.models.blocks` for decoder-only all-attention stacks
-with dense FFNs. The reference stacks each period position's parameters
+The port of `repro.models.blocks` for decoder-only global-attention stacks
+with dense FFNs, over contiguous or block-paged KV caches. The reference stacks each period position's parameters
 along a scan dimension (`blocks.init_stack`); the port keeps a plain list
 of per-layer dicts in layer order (`repro_torch.ckpt` unstacks the
 reference's layout) and runs the layers in a Python loop in place of
@@ -39,36 +39,53 @@ def init_layer(gen, cfg: ModelConfig, mixer: str, ffn_kind: str, device,
 
 def apply_layer(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
                 plan: ExecPlan | ExecConfig, mixer: str, ffn_kind: str,
-                positions: torch.Tensor, cache: Params,
-                slot_lens: torch.Tensor, block_table: torch.Tensor,
-                page_size: int, chunk_offs: Optional[torch.Tensor] = None):
+                positions: torch.Tensor, cache: Optional[Params] = None,
+                pad_lens: Optional[torch.Tensor] = None, pad_prompt_len=None,
+                slot_lens: Optional[torch.Tensor] = None,
+                block_table: Optional[torch.Tensor] = None,
+                page_size: Optional[int] = None,
+                chunk_offs: Optional[torch.Tensor] = None):
     _check_layer(cfg, mixer, ffn_kind)
     plan = _mixer_plan(as_plan(cfg, plan), mixer)
     h = layers.apply_norm(p["norm1"], x, cfg)
     m, new_cache = layers.attention(
         p["attn"], h, cfg=cfg, plan=plan, positions=positions,
-        cache=cache["attn"], slot_lens=slot_lens, block_table=block_table,
-        page_size=page_size, chunk_offs=chunk_offs)
+        cache=cache["attn"] if cache else None, pad_lens=pad_lens,
+        pad_prompt_len=pad_prompt_len, slot_lens=slot_lens,
+        block_table=block_table, page_size=page_size, chunk_offs=chunk_offs)
     x = x + m
     h2 = layers.apply_norm(p["norm2"], x, cfg)
     x = x + layers.ffn(p["ffn"], h2, cfg, plan)
-    return x, {"attn": new_cache}
+    return x, ({"attn": new_cache} if new_cache is not None else None)
 
 
-def init_layer_cache(cfg: ModelConfig, mixer: str, batch: int, device, dtype,
-                     page_size: int, n_pages: int) -> Params:
-    """One layer's block-paged cache: k/v are an (n_pages, page_size, KV, hd)
-    pool shared by every slot; ``idx`` is the (batch,) per-slot fill."""
+def init_layer_cache(cfg: ModelConfig, mixer: str, batch: int, max_len: int,
+                     device, dtype, page_size: Optional[int] = None,
+                     n_pages: Optional[int] = None) -> Params:
+    """One layer's decode cache.
+
+    Contiguous: k/v (batch, max_len, KV, hd) and a scalar write index.
+    Block-paged (``page_size``/``n_pages``): k/v are an (n_pages, page_size,
+    KV, hd) pool shared by every slot and ``idx`` is the (batch,) per-slot
+    fill; ``max_len`` then only documents intent.
+    """
     if mixer != "attn":
         raise NotImplementedError(
-            f"block-paged caches cover global attention layers only; mixer "
-            f"{mixer!r} keeps its own state layout")
+            f"KV caches cover global attention layers only; mixer {mixer!r} "
+            f"is not ported")
     hd = cfg.resolved_head_dim
-    shape = (n_pages, page_size, cfg.n_kv_heads, hd)
+    if page_size is not None:
+        if n_pages is None:
+            raise ValueError("paged caches need n_pages")
+        shape = (n_pages, page_size, cfg.n_kv_heads, hd)
+        idx = torch.zeros((batch,), device=device, dtype=torch.int32)
+    else:
+        shape = (batch, max_len, cfg.n_kv_heads, hd)
+        idx = torch.zeros((), device=device, dtype=torch.int32)
     return {"attn": {
         "k": torch.zeros(shape, device=device, dtype=dtype),
         "v": torch.zeros(shape, device=device, dtype=dtype),
-        "idx": torch.zeros((batch,), device=device, dtype=torch.int32),
+        "idx": idx,
     }}
 
 
@@ -78,26 +95,38 @@ def init_stack(gen, cfg: ModelConfig, device, dtype) -> list:
             for i in range(cfg.n_layers)]
 
 
-def init_stack_cache(cfg: ModelConfig, batch: int, device, dtype,
-                     page_size: int, n_pages: int) -> list:
-    return [init_layer_cache(cfg, cfg.layer_spec(i)[0], batch, device, dtype,
-                             page_size, n_pages)
+def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, device,
+                     dtype, page_size: Optional[int] = None,
+                     n_pages: Optional[int] = None) -> list:
+    return [init_layer_cache(cfg, cfg.layer_spec(i)[0], batch, max_len,
+                             device, dtype, page_size, n_pages)
             for i in range(cfg.n_layers)]
 
 
 def apply_stack(params: list, x: torch.Tensor, *, cfg: ModelConfig,
                 plan: ExecPlan | ExecConfig, positions: torch.Tensor,
-                caches: list, slot_lens: torch.Tensor,
-                block_table: torch.Tensor, page_size: int,
+                caches: Optional[list], pad_lens: Optional[torch.Tensor] = None,
+                pad_prompt_len=None, slot_lens: Optional[torch.Tensor] = None,
+                block_table: Optional[torch.Tensor] = None,
+                page_size: Optional[int] = None,
                 chunk_offs: Optional[torch.Tensor] = None):
-    """Run the stack over a paged cache (one block table for every layer)."""
+    """Run the stack; ``caches`` is `init_stack_cache`'s list (or None).
+
+    ``pad_lens`` (B,) marks per-row left-pad prefixes of a bucket;
+    ``block_table`` + ``page_size`` mark the caches as block-paged pools
+    (one table for every layer); ``chunk_offs`` makes the call a
+    chunked-prefill step.
+    """
     plan = as_plan(cfg, plan)
-    new_caches = []
-    for i, (p, c) in enumerate(zip(params, caches)):
+    new_caches = [] if caches is not None else None
+    for i, p in enumerate(params):
         mixer, ffn_kind = cfg.layer_spec(i)
         x, nc = apply_layer(p, x, cfg=cfg, plan=plan, mixer=mixer,
-                            ffn_kind=ffn_kind, positions=positions, cache=c,
+                            ffn_kind=ffn_kind, positions=positions,
+                            cache=caches[i] if caches is not None else None,
+                            pad_lens=pad_lens, pad_prompt_len=pad_prompt_len,
                             slot_lens=slot_lens, block_table=block_table,
                             page_size=page_size, chunk_offs=chunk_offs)
-        new_caches.append(nc)
+        if new_caches is not None:
+            new_caches.append(nc)
     return x, new_caches

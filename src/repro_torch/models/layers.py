@@ -1,11 +1,16 @@
 """Transformer building blocks: norms, positions, attention, FFN.
 
-The port of `repro.models.layers` for the paged serving path. Parameters
-are plain dicts of tensors, one dict per layer, and every layer call
-dispatches through the resolved `repro_torch.exec.ExecPlan` exactly as the
-reference does. Attention covers the block-paged KV cache only: the Sq=1
-decode step and the chunked-prefill step, with the page-table kernels for
-paged backends and the gather degrade for every other backend.
+The port of `repro.models.layers` for decoder-only global-attention stacks.
+Parameters are plain dicts of tensors, one dict per layer, and every layer
+call dispatches through the resolved `repro_torch.exec.ExecPlan` exactly as
+the reference does. Attention covers both KV caches of the reference:
+
+* the contiguous cache (B, max_len, KV, hd) with a scalar (or per-slot)
+  write index: whole-prompt prefill, with left-padded buckets masked per
+  row, and the Sq=1 decode step against the valid prefix;
+* the block-paged pool: the Sq=1 decode step and the chunked-prefill step,
+  with the page-table kernels for paged backends and the gather degrade
+  for every other backend.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ from typing import Optional
 import torch
 
 from ..configs.base import ExecConfig, ModelConfig
+from ..core.quant import quantize_tensor
 from ..exec.plan import ExecPlan, as_plan
 
 Params = dict
@@ -33,6 +39,13 @@ class QuantizedWeight:
     def to(self, device):
         return QuantizedWeight(self.codes.to(device), self.scale.to(device),
                                self.shape)
+
+
+def _probs_dtype(cfg: ModelConfig):
+    """dtype of the p matrix fed to the digital PV product."""
+    if cfg.attn_probs_dtype == "float32" or cfg.compute_dtype == "float32":
+        return torch.float32
+    return torch.bfloat16
 
 
 # --------------------------------------------------------------------------
@@ -133,6 +146,145 @@ def _split_gqa(q, n_kv):
     return q.reshape(b, s, n_kv, h // n_kv, hd)
 
 
+def _chunked_attention(q, k, v, mask_fn, chunk: int, scale: float,
+                       probs_dtype, pad_lens=None):
+    """Online-softmax attention over KV chunks, flat-head layout.
+
+    q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd), KV heads repeated to H inside
+    each chunk. mask_fn(q_idx, k_idx) -> bool; ``pad_lens`` (B,) int32 also
+    masks each row's first ``pad_lens[b]`` keys (left-padded buckets). A
+    query row with no valid key outputs zeros.
+    """
+    b, sq, h, hd = q.shape
+    kv = k.shape[2]
+    rep = h // kv
+    sk_real = k.shape[1]
+    pad = (-sk_real) % chunk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    dev = q.device
+    q32 = q.float().transpose(1, 2) * scale  # (B, H, Sq, hd)
+    qpos = torch.arange(sq, device=dev)
+    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, h, sq, hd), dtype=torch.float32, device=dev)
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
+    for c0 in range(0, k.shape[1], chunk):
+        kr = k[:, c0:c0 + chunk].float().repeat_interleave(rep, dim=2)
+        s = torch.einsum("bhqd,bchd->bhqc", q32, kr)
+        kpos = c0 + torch.arange(chunk, device=dev)
+        msk = mask_fn(qpos[:, None], kpos[None, :]) & (kpos < sk_real)[None, :]
+        if pad_lens is not None:  # per-row: left-pad keys do not exist
+            msk = msk[None] & (kpos[None, :] >= pad_lens[:, None])[:, None, :]
+            s = torch.where(msk[:, None], s, neg)
+        else:
+            s = torch.where(msk[None, None], s, neg)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        pv = p.to(probs_dtype)
+        vr = v[:, c0:c0 + chunk].to(pv.dtype).repeat_interleave(rep, dim=2)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqc,bchd->bhqd", pv, vr).float()
+        m = m_new
+    out = torch.where(m[..., None] > NEG_INF * 0.5,
+                      acc / torch.clamp_min(l, 1e-30)[..., None],
+                      torch.zeros((), device=dev))
+    return out.transpose(1, 2)  # (B, Sq, H, hd)
+
+
+def _decode_quantize(q, k, v, kv_len, scale):
+    """Fused-decode prolog shared by both decode backends: q (B, 1, H, hd)
+    with 1/sqrt(d) folded, whole-tensor int8; the k/v cache buffers
+    (B, Smax, KV, hd) int8 once, unrepeated, scales over the valid prefix."""
+    from ..kernels.ops import masked_prefix_quantize
+    qq = quantize_tensor(q.float() * scale, bits=8)
+    kq = masked_prefix_quantize(k.float(), kv_len, axis=1)
+    vq = masked_prefix_quantize(v.float(), kv_len, axis=1)
+    return qq, kq, vq
+
+
+def _decode_descale(out32, cmax, v_scale, shape):
+    """Fused-decode epilog: the oracle's PROB requant + V scales."""
+    from ..kernels.ops import prob_requant_scale
+    return (out32.float() * (prob_requant_scale(cmax) * v_scale)).reshape(shape)
+
+
+def _raceit_fused_decode(q, k, v, kv_len, scale, plan: ExecPlan,
+                         pad_valid=None):
+    """Decode-step (Sq=1) attention on the fused kernel, flat heads.
+
+    q: (B, Sq, H, hd); k/v: (B, Smax, KV, hd) fixed-shape cache buffers of
+    which the first ``kv_len`` rows are valid (scalar or (B,)). GQA heads
+    are repeated to H after quantization, as int8 codes. ``pad_valid``
+    (B, Smax) or (B, Sq, Smax) bool marks attendable slots (masked slots sit
+    at the LOGIT minimum); it reaches the kernel as one mask row per batch
+    row. ``Sq > 1`` is the chunked-prefill step, on the general entry.
+    Returns (B, Sq, H, hd).
+    """
+    from ..kernels.ops import (acam_attention_codes,
+                               acam_attention_decode_codes, expand_row_lens)
+    b, sq, h, hd = q.shape
+    smax, kv = k.shape[1], k.shape[2]
+    rep = h // kv
+    qq, (k_codes, k_scale), (v_codes, v_scale) = _decode_quantize(
+        q, k, v, kv_len, scale)
+
+    def fold(c):
+        if rep > 1:
+            c = c.repeat_interleave(rep, dim=2)
+        return c.transpose(1, 2).reshape(b * h, smax, hd).contiguous()
+
+    mask = None
+    if pad_valid is not None:  # (B, Smax) -> (B, Sq, Smax), one row per b
+        mask = (pad_valid[:, None, :] if pad_valid.ndim == 2
+                else pad_valid).expand(b, sq, smax)
+    kvl = expand_row_lens(kv_len, h)
+    qc = qq.codes.transpose(1, 2).reshape(b * h, sq, hd).contiguous()
+    mode = plan.exec_cfg.softmax_mode
+    if sq == 1:
+        out32, cmax = acam_attention_decode_codes(
+            qc, fold(k_codes), fold(v_codes), qq.scale * k_scale, kvl,
+            mask=mask, mode=mode)
+    else:
+        out32, cmax = acam_attention_codes(
+            qc, fold(k_codes), fold(v_codes), qq.scale * k_scale, mask,
+            kv_len=kvl, mode=mode)
+    return _decode_descale(out32, cmax, v_scale, (b, h, sq, hd)
+                           ).transpose(1, 2)
+
+
+def _raceit_gqa_decode(q, k, v, kv_len, scale, plan: ExecPlan,
+                       pad_valid=None):
+    """GQA-native decode-step attention: the KV cache is never repeated.
+
+    Same numbers as `_raceit_fused_decode`; k/v stay (B*KV, Smax, hd)
+    groups whose ``rep = H/KV`` sharing queries ride the row dimension.
+    ``Sq > 1`` (chunked prefill) takes the flat entry.
+    """
+    from ..kernels.ops import acam_attention_decode_gqa_codes, expand_row_lens
+    b, sq, h, hd = q.shape
+    smax, kv = k.shape[1], k.shape[2]
+    rep = h // kv
+    if sq > 1:
+        return _raceit_fused_decode(q, k, v, kv_len, scale, plan,
+                                    pad_valid=pad_valid)
+    qq, (k_codes, k_scale), (v_codes, v_scale) = _decode_quantize(
+        q, k, v, kv_len, scale)
+    to_groups = lambda c: c.transpose(1, 2).reshape(b * kv, smax, hd
+                                                    ).contiguous()
+    mask = None
+    if pad_valid is not None:  # (B, Smax) -> (B, rep, Smax), one row per b
+        mask = pad_valid[:, None, :].expand(b, rep, smax)
+    out32, cmax = acam_attention_decode_gqa_codes(
+        qq.codes.reshape(b * kv, rep, hd).contiguous(), to_groups(k_codes),
+        to_groups(v_codes), qq.scale * k_scale, expand_row_lens(kv_len, kv),
+        mask=mask, mode=plan.exec_cfg.softmax_mode)
+    return _decode_descale(out32, cmax, v_scale, (b, sq, h, hd))
+
+
 def _raceit_paged_decode(q, k_pool, v_pool, kv_len, scale, plan: ExecPlan,
                          pad_valid=None, block_table=None, gqa=False):
     """Decode / chunk attention over a block-paged KV pool on the kernel.
@@ -195,23 +347,101 @@ def paged_write_targets_decode(block_table, lens, page_size: int):
     return pages, pos % ps
 
 
+def _attn_quantize(q, k, v, scale):
+    """Fig.-12 prolog: repeat KV heads to H, quantize to int8 codes."""
+    rep = q.shape[2] // k.shape[2]
+    kf = k.repeat_interleave(rep, dim=2) if rep > 1 else k
+    vf = v.repeat_interleave(rep, dim=2) if rep > 1 else v
+    qq = quantize_tensor(q.float() * scale, bits=8)
+    kq = quantize_tensor(kf.float(), bits=8)
+    vq = quantize_tensor(vf.float(), bits=8)
+    return qq, kq, vq
+
+
+def _raceit_fused_attention(q, k, v, mask, scale, plan: ExecPlan,
+                            causal_offset=None):
+    """Prefill attention on the fused kernel: the whole Fig.-12 pipeline,
+    no (Sq, Sk) intermediates. ``causal_offset`` selects the kernel's
+    in-kernel causal mask; otherwise ``mask`` (B, Sq, Sk) reaches the kernel
+    as one mask row per batch row (the reference broadcasts it over heads).
+    """
+    from ..kernels.ops import acam_attention_codes, prob_requant_scale
+    qq, kq, vq = _attn_quantize(q, k, v, scale)
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    rows = lambda c, n: c.transpose(1, 2).reshape(b * h, n, hd).contiguous()
+    out32, cmax = acam_attention_codes(
+        rows(qq.codes, sq), rows(kq.codes, sk), rows(vq.codes, sk),
+        qq.scale * kq.scale, None if causal_offset is not None else mask,
+        q_offset=causal_offset if causal_offset is not None else 0,
+        causal=causal_offset is not None, mode=plan.exec_cfg.softmax_mode)
+    out = out32.float() * (prob_requant_scale(cmax) * vq.scale)
+    return out.reshape(b, h, sq, hd).transpose(1, 2)
+
+
+def _write_contiguous(cache, k, v, sq: int):
+    """Write this call's k/v into a contiguous cache, in place.
+
+    A scalar ``idx`` writes columns [idx, idx + sq) (clamped to the buffer
+    as `dynamic_update_slice` clamps); a (B,) per-slot ``idx`` takes Sq=1
+    steps, each row at its own column; a prompt past the buffer keeps its
+    last L columns. The reference builds a new buffer; the port writes the
+    one it was given.
+    """
+    ck, cv = cache["k"], cache["v"]
+    idx = cache["idx"]
+    L = ck.shape[1]
+    if sq >= L:
+        ck.copy_(k[:, -L:].to(ck.dtype))
+        cv.copy_(v[:, -L:].to(cv.dtype))
+    elif idx.ndim == 1:
+        if sq != 1:
+            raise ValueError("per-slot caches only take Sq=1 decode steps")
+        rows = torch.arange(ck.shape[0], device=ck.device)
+        ck.index_put_((rows, idx.long()), k[:, 0].to(ck.dtype))
+        cv.index_put_((rows, idx.long()), v[:, 0].to(cv.dtype))
+    else:
+        pos = torch.clamp(idx.long(), 0, L - sq)
+        cols = pos + torch.arange(sq, device=ck.device)
+        ck.index_copy_(1, cols, k.to(ck.dtype))
+        cv.index_copy_(1, cols, v.to(cv.dtype))
+    return {"k": ck, "v": cv, "idx": idx + sq}
+
+
 def attention(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
               plan: ExecPlan | ExecConfig, positions: torch.Tensor,
-              cache: Params, slot_lens: torch.Tensor,
-              block_table: torch.Tensor, page_size: int,
+              local: bool = False, cache: Optional[Params] = None,
+              chunk: int = 1024, pad_lens: Optional[torch.Tensor] = None,
+              pad_prompt_len=None, slot_lens: Optional[torch.Tensor] = None,
+              block_table: Optional[torch.Tensor] = None,
+              page_size: Optional[int] = None,
               chunk_offs: Optional[torch.Tensor] = None):
-    """Self-attention against a block-paged KV cache.
+    """Self-attention with an optional KV cache, contiguous or block-paged.
 
-    ``cache["k"]``/``"v"`` are the (n_pages, page_size, KV, hd) pool shared
-    by every slot; row b's logical column c lives at pool position
-    (block_table[b, c // page_size], c % page_size). Two step shapes: the
-    Sq=1 decode step (the new k/v land at column ``slot_lens[b] - 1``) and
-    the chunked-prefill step (``chunk_offs`` given: row b streams into
-    columns [chunk_offs[b], slot_lens[b])). Paged backends get the pool and
-    table; any other backend is served by gathering the table's pages back
-    to contiguous rows, a degrade, never an error.
+    Contiguous: ``cache = {"k": (B, Smax, KV, hd), "v": ..., "idx": ()
+    int32 or (B,)}``. A call with Sq > 1 is the prefill (through
+    ``plan.attention_prefill``, causal from column ``idx``); an Sq=1 call
+    is a decode step against the cache's valid prefix (through
+    ``plan.attention_decode``), whose length is ``slot_lens`` when given,
+    else the post-write ``idx``. ``pad_lens`` (B,) marks left-pad prefixes
+    of a bucket: prefill masks those keys per row, decode masks those
+    cache slots; ``pad_prompt_len`` drops the decode pad mask of a layer
+    whose buffer the prompt overflowed.
+
+    Paged (``block_table``/``page_size``): ``cache["k"]``/``"v"`` are the
+    (n_pages, page_size, KV, hd) pool shared by every slot; row b's logical
+    column c lives at pool position (block_table[b, c // page_size],
+    c % page_size). Two step shapes: the Sq=1 decode step (the new k/v land
+    at column ``slot_lens[b] - 1``) and the chunked-prefill step
+    (``chunk_offs`` given: row b streams into columns [chunk_offs[b],
+    slot_lens[b])). Paged backends get the pool and table; any other
+    backend is served by gathering the table's pages back to contiguous
+    rows, a degrade, never an error.
     """
     plan = as_plan(cfg, plan)
+    if local:
+        raise NotImplementedError("local/ring attention layers are not "
+                                  "ported yet")
     b, sq, _ = x.shape
     hd = cfg.resolved_head_dim
     q = _linear(x, p["wq"], plan, p.get("bq"))
@@ -220,11 +450,78 @@ def attention(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
     if cfg.pos_emb in ("rope", "mrope"):
         q = apply_rope(q, positions, cfg)
         k = apply_rope(k, positions, cfg)
-    if block_table is None or page_size is None:
-        raise NotImplementedError(
-            "only the block-paged KV cache is ported; the contiguous cache "
-            "comes with the solo generate path")
+    scale = 1.0 / math.sqrt(hd)
 
+    paged = block_table is not None
+    if chunk_offs is not None and not paged:
+        raise ValueError("chunk_offs is the chunked-prefill surface of "
+                         "block-paged caches; pass block_table/page_size")
+    if paged:
+        if page_size is None:
+            raise ValueError("paged caches need a static page_size")
+        if cache is None:
+            raise ValueError("block_table requires a self-attention KV cache")
+        if slot_lens is None:
+            raise ValueError("paged caches take their per-slot lengths from "
+                             "slot_lens")
+        if pad_lens is not None:
+            raise ValueError("paged slots are never left-padded; pad_lens "
+                             "does not apply")
+        o, new_cache = _paged_attention(q, k, v, cache, slot_lens,
+                                        block_table, page_size, chunk_offs,
+                                        scale, plan)
+    else:
+        new_cache = None
+        if cache is not None:
+            new_cache = _write_contiguous(cache, k, v, sq)
+            if sq == 1:  # decode attends through the cache
+                k, v = new_cache["k"], new_cache["v"]
+        if sq == 1 and cache is not None:
+            L = k.shape[1]
+            lens = (slot_lens.to(torch.int32) if slot_lens is not None
+                    else new_cache["idx"])
+            kv_len = torch.clamp(lens, max=L)
+            pad_valid = None
+            if pad_lens is not None:
+                # slot s of row b holds a pad token until the ring write for
+                # token s + L reclaims it (inert for L = max_len)
+                slots = torch.arange(L, device=x.device)
+                pad_valid = ((slots[None, :] >= pad_lens[:, None])
+                             | (lens.reshape(-1, 1) > L + slots[None, :]))
+                if pad_prompt_len is not None:
+                    pad_valid = pad_valid | (torch.as_tensor(
+                        pad_prompt_len, device=x.device).reshape(-1, 1) > L)
+            o = plan.attention_decode(q, k, v, kv_len=kv_len, scale=scale,
+                                      pad_valid=pad_valid)
+        else:
+            q_off = cache["idx"] if cache is not None else 0
+            kind = "causal" if cfg.causal else "bidir"
+            o = plan.attention_prefill(q, k, v, scale=scale, q_offset=q_off,
+                                       kind=kind, window=cfg.window,
+                                       chunk=chunk,
+                                       probs_dtype=_probs_dtype(cfg),
+                                       pad_lens=pad_lens)
+
+    wq = p["wq"]
+    heff = wq.shape[0] if isinstance(wq, QuantizedWeight) else wq.shape[1]
+    o = o.reshape(b, sq, heff, hd).to(x.dtype)
+    if heff > cfg.n_heads:  # hard-mask padded heads
+        o = o * (torch.arange(heff, device=x.device) < cfg.n_heads
+                 )[None, None, :, None].to(o.dtype)
+    wo = p["wo"]
+    if isinstance(wo, QuantizedWeight):  # codes already (H*hd, D)
+        out = _linear(o.reshape(b, sq, heff * hd), wo, plan)
+    else:
+        out = torch.einsum("bshd,hdm->bsm", o, wo.to(x.dtype))
+    return out, new_cache
+
+
+def _paged_attention(q, k, v, cache, slot_lens, block_table, page_size,
+                     chunk_offs, scale, plan):
+    """The block-paged branch of `attention`: pool writes, then the decode
+    or chunk step through ``plan.attention_decode``."""
+    b, sq = q.shape[:2]
+    dev = q.device
     ps = int(page_size)
     lens = slot_lens.to(torch.int32)
     bt = block_table.to(torch.int32)
@@ -244,16 +541,14 @@ def attention(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
         cv.index_put_((pages, slot), v[:, 0].to(cv.dtype))
     new_cache = {"k": ck, "v": cv, "idx": lens}
 
-    scale = 1.0 / math.sqrt(hd)
-    mp = bt.shape[1]
-    lk = mp * ps
+    lk = bt.shape[1] * ps
     kv_len = torch.clamp(lens, max=lk)
     pad_valid = None
     if chunk_offs is not None:
         # query j of row b sits at chunk_offs[b] + j and attends columns <= it
         qpos = (chunk_offs.to(torch.int32)[:, None]
-                + torch.arange(sq, dtype=torch.int32, device=x.device)[None, :])
-        pad_valid = (torch.arange(lk, dtype=torch.int32, device=x.device
+                + torch.arange(sq, dtype=torch.int32, device=dev)[None, :])
+        pad_valid = (torch.arange(lk, dtype=torch.int32, device=dev
                                   )[None, None, :] <= qpos[..., None])
     if plan.op("attention_decode").spec.paged:
         o = plan.attention_decode(q, ck, cv, kv_len=kv_len, scale=scale,
@@ -264,27 +559,15 @@ def attention(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
         # each row's kv_len are zeroed, as a contiguous cache's unwritten
         # tail would be (the trash page holds other rows' fenced garbage)
         kvh, hdim = ck.shape[2], ck.shape[3]
-        live = (torch.arange(lk, device=x.device)[None, :]
+        live = (torch.arange(lk, device=dev)[None, :]
                 < kv_len[:, None])[:, :, None, None]
         btl = bt.long()
-        zero = torch.zeros((), dtype=ck.dtype, device=x.device)
+        zero = torch.zeros((), dtype=ck.dtype, device=dev)
         o = plan.attention_decode(
             q, torch.where(live, ck[btl].reshape(b, lk, kvh, hdim), zero),
             torch.where(live, cv[btl].reshape(b, lk, kvh, hdim), zero),
             kv_len=kv_len, scale=scale, pad_valid=pad_valid)
-
-    wq = p["wq"]
-    heff = wq.shape[0] if isinstance(wq, QuantizedWeight) else wq.shape[1]
-    o = o.reshape(b, sq, heff, hd).to(x.dtype)
-    if heff > cfg.n_heads:  # hard-mask padded heads
-        o = o * (torch.arange(heff, device=x.device) < cfg.n_heads
-                 )[None, None, :, None].to(o.dtype)
-    wo = p["wo"]
-    if isinstance(wo, QuantizedWeight):  # codes already (H*hd, D)
-        out = _linear(o.reshape(b, sq, heff * hd), wo, plan)
-    else:
-        out = torch.einsum("bshd,hdm->bsm", o, wo.to(x.dtype))
-    return out, new_cache
+    return o, new_cache
 
 
 # --------------------------------------------------------------------------

@@ -1,9 +1,12 @@
-"""Top-level decoder LM over a block-paged slot cache.
+"""Top-level decoder LM over a contiguous or block-paged KV cache.
 
 The port of the serving half of `repro.models.model`:
 
     model = Model(cfg, exec_cfg, device="cuda")
     params = model.init(torch.Generator(device).manual_seed(0))
+    cache = model.init_cache(batch, max_len)            # solo / buckets
+    logits, cache = model.prefill(params, prompts, cache, pad_lens=None)
+    logits, cache = model.decode_step(params, token, cache)
     cache = model.init_slot_cache(n_slots, max_len, page_size=64, n_pages=N)
     logits, cache = model.prefill_chunk(params, tokens, cache, offs, lens,
                                         block_table, page_size)
@@ -102,6 +105,12 @@ class Model:
                 "final_norm": layers.init_norm(cfg, dev, dt),
                 "blocks": blocks.init_stack(gen, cfg, dev, dt)}
 
+    def init_cache(self, batch: int, max_len: int, dtype=None) -> list:
+        """A contiguous KV cache: (batch, max_len, KV, hd) buffers and a
+        scalar write index per layer."""
+        return blocks.init_stack_cache(self.cfg, batch, max_len, self.device,
+                                       dtype or self.compute_dtype)
+
     def init_slot_cache(self, n_slots: int, max_len: int, dtype=None,
                         page_size: Optional[int] = None,
                         n_pages: Optional[int] = None) -> list:
@@ -113,34 +122,85 @@ class Model:
             raise NotImplementedError(
                 "only block-paged slot caches are ported (pass page_size "
                 "and n_pages)")
-        return blocks.init_stack_cache(self.cfg, n_slots, self.device,
+        return blocks.init_stack_cache(self.cfg, n_slots, max_len,
+                                       self.device,
                                        dtype or self.compute_dtype,
                                        page_size, n_pages)
 
-    def _trunk(self, params, tokens, positions, cache, slot_lens, block_table,
-               page_size, chunk_offs=None):
+    def _positions(self, tokens: torch.Tensor, offset=0) -> torch.Tensor:
+        b, s = tokens.shape[:2]
+        pos = torch.arange(s, dtype=torch.int32, device=tokens.device) + offset
+        return pos.expand(b, s)
+
+    def _trunk(self, params, tokens, positions, cache, pad_lens=None,
+               pad_prompt_len=None, slot_lens=None, block_table=None,
+               page_size=None, chunk_offs=None):
         cfg = self.cfg
         x = layers.embed(params["embed"], tokens, positions, cfg)
         x = x.to(self.compute_dtype)
         x, new_cache = blocks.apply_stack(
             params["blocks"], x, cfg=cfg, plan=self.plan, positions=positions,
-            caches=cache, slot_lens=slot_lens, block_table=block_table,
+            caches=cache, pad_lens=pad_lens, pad_prompt_len=pad_prompt_len,
+            slot_lens=slot_lens, block_table=block_table,
             page_size=page_size, chunk_offs=chunk_offs)
         return layers.apply_norm(params["final_norm"], x, cfg), new_cache
 
+    def prefill(self, params: Params, tokens: torch.Tensor, cache: list,
+                positions=None, pad_lens=None):
+        """Process the prompt; returns last-position logits and the cache.
+
+        ``pad_lens`` (B,) int32: per-row left-pad prefix lengths (bucketed
+        serving). Real tokens sit at positions shifted down by their row's
+        pad count (pad columns clip to 0), and attention masks the pad
+        columns per row, so a request's prefill does not depend on its
+        bucket-mates.
+        """
+        if positions is None:
+            positions = self._positions(tokens)
+            if pad_lens is not None:
+                positions = torch.clamp(
+                    positions - pad_lens[:, None].to(torch.int32), min=0)
+        x, new_cache = self._trunk(params, tokens, positions, cache,
+                                   pad_lens=pad_lens)
+        return (layers.unembed(params["embed"], x[:, -1:], self.cfg, self.plan),
+                new_cache)
+
     def decode_step(self, params: Params, token: torch.Tensor, cache: list,
-                    slot_lens: torch.Tensor, block_table: torch.Tensor,
-                    page_size: int):
+                    slot_lens: Optional[torch.Tensor] = None,
+                    block_table: Optional[torch.Tensor] = None,
+                    page_size: Optional[int] = None, pad_lens=None,
+                    pad_prompt_len=None):
         """token: (B, 1). Returns (logits (B, 1, V), cache).
 
+        Contiguous caches (no ``slot_lens``): the new token sits at the
+        cache's write index, less the row's pad count under ``pad_lens``.
         ``slot_lens`` (B,) counts row b's valid cache columns including the
-        token decoded this step (0 = an empty slot, a dead row).
+        token decoded this step (0 = an empty slot, a dead row);
+        ``block_table``/``page_size`` address a block-paged slot cache.
         """
-        lens = slot_lens.to(torch.int32)
-        positions = torch.clamp(lens - 1, min=0)[:, None].expand(token.shape)
-        x, new_cache = self._trunk(params, token, positions, cache, lens,
-                                   block_table, page_size)
+        if slot_lens is not None:
+            lens = slot_lens.to(torch.int32)
+            positions = torch.clamp(lens - 1, min=0)[:, None].expand(
+                token.shape)
+        else:
+            lens = None
+            positions = self._cache_index(cache).to(torch.int32).expand(
+                token.shape)
+        if pad_lens is not None:
+            positions = torch.clamp(
+                positions - pad_lens[:, None].to(torch.int32), min=0)
+        x, new_cache = self._trunk(params, token, positions, cache,
+                                   pad_lens=pad_lens,
+                                   pad_prompt_len=pad_prompt_len,
+                                   slot_lens=lens, block_table=block_table,
+                                   page_size=page_size)
         return layers.unembed(params["embed"], x, self.cfg, self.plan), new_cache
+
+    @staticmethod
+    def _cache_index(cache: list) -> torch.Tensor:
+        """The write index of the first layer's cache (its max, per slot)."""
+        idx = cache[0]["attn"]["idx"]
+        return idx.amax() if idx.ndim else idx
 
     def prefill_chunk(self, params: Params, tokens: torch.Tensor, cache: list,
                       chunk_offs: torch.Tensor, chunk_lens: torch.Tensor,
@@ -156,8 +216,9 @@ class Model:
         positions = offs[:, None] + torch.arange(
             tokens.shape[1], dtype=torch.int32, device=tokens.device)[None, :]
         x, new_cache = self._trunk(params, tokens, positions, cache,
-                                   offs + feed, block_table, page_size,
-                                   chunk_offs=offs)
+                                   slot_lens=offs + feed,
+                                   block_table=block_table,
+                                   page_size=page_size, chunk_offs=offs)
         last = torch.clamp(feed - 1, min=0).long()
         x_last = x[torch.arange(x.shape[0], device=x.device), last][:, None]
         return (layers.unembed(params["embed"], x_last, self.cfg, self.plan),

@@ -1,5 +1,6 @@
-"""Serving (port of repro.serve): the engine and the paged continuous batcher."""
-from .batching import Request, RequestError  # noqa: F401
+"""Serving (port of repro.serve): the engine, the bucketed scheduler and the
+paged continuous batcher."""
+from .batching import BatchScheduler, Request, RequestError  # noqa: F401
 from .continuous import ContinuousBatcher  # noqa: F401
 from .engine import GenerationEngine  # noqa: F401
 from .metrics import Histogram, ServeMetrics, jain  # noqa: F401

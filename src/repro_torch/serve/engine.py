@@ -1,9 +1,12 @@
-"""Serving engine: the model's paged decode and chunk entries plus sampling.
+"""Serving engine: prefill/decode entries over KV caches, plus generation.
 
-The port of `repro.serve.engine` for the paged continuous batcher. The
-reference jits ``decode_step`` and ``prefill_chunk`` with the page pool
-donated; the port runs them eagerly and updates the pool in place. Solo
-``generate`` (the contiguous-cache path) comes with a later slice.
+The port of `repro.serve.engine`. `GenerationEngine.generate` serves one
+batch end to end on a contiguous cache (prefill, then greedy or temperature
+decoding): solo requests, or a left-padded bucket of `serve.batching` with
+per-row ``pad_lens``. The paged continuous batcher drives ``_decode`` and
+``_prefill_chunk`` on a block-paged pool. The reference jits these entries
+with the cache donated; the port runs them eagerly and updates the caches
+in place.
 """
 from __future__ import annotations
 
@@ -42,12 +45,51 @@ class GenerationEngine:
         return self.plan.explain()
 
     @torch.no_grad()
-    def _decode(self, params, token, cache, slot_lens, block_table,
-                page_size):
+    def generate(self, prompts, n_new: int,
+                 gen: Optional[torch.Generator] = None,
+                 pad_lens: Optional[np.ndarray] = None) -> np.ndarray:
+        """prompts: (B, P) int32 -> (B, n_new) generated ids.
+
+        ``pad_lens`` (B,) int32: per-row left-pad prefix lengths of a
+        mixed-length bucket. Pad columns are masked out of every attention
+        step and real tokens keep their solo positions. Sampling at
+        ``temperature > 0`` draws from ``gen`` (a generator on the engine's
+        device) in place of the reference's per-step key splits.
+        """
+        prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.int64,
+                                  device=self.device)
+        B, P = prompts.shape
+        assert P + n_new <= self.max_len
+        if pad_lens is not None:
+            pad_lens = torch.as_tensor(np.asarray(pad_lens), dtype=torch.int32,
+                                       device=self.device)
+        cache = self.model.init_cache(B, self.max_len)
+        logits, cache = self._prefill(self.params, prompts, cache,
+                                      pad_lens=pad_lens)
+        tok = self._sample(logits[:, -1], gen)
+        out = [tok]
+        pad_plen = (torch.tensor(P, dtype=torch.int32, device=self.device)
+                    if pad_lens is not None else None)
+        for _ in range(n_new - 1):
+            logits, cache = self._decode(self.params, tok[:, None], cache,
+                                         pad_lens=pad_lens,
+                                         pad_prompt_len=pad_plen)
+            tok = self._sample(logits[:, -1], gen)
+            out.append(tok)
+        return torch.stack(out, dim=1).cpu().numpy()
+
+    @torch.no_grad()
+    def _prefill(self, params, tokens, cache, pad_lens=None):
+        return self.model.prefill(params, tokens, cache, pad_lens=pad_lens)
+
+    @torch.no_grad()
+    def _decode(self, params, token, cache, slot_lens=None, block_table=None,
+                page_size=None, pad_lens=None, pad_prompt_len=None):
         return self.model.decode_step(params, token, cache,
                                       slot_lens=slot_lens,
                                       block_table=block_table,
-                                      page_size=page_size)
+                                      page_size=page_size, pad_lens=pad_lens,
+                                      pad_prompt_len=pad_prompt_len)
 
     @torch.no_grad()
     def _prefill_chunk(self, params, tokens, cache, chunk_offs, chunk_lens,

@@ -31,4 +31,5 @@ def to_numpy(tree):
 
 def port_params(jax_params, cfg):
     """The reference's float parameter tree in the port's layout (CPU)."""
-    return params_from_numpy(to_numpy(jax_params), port_model_config(cfg))
+    return params_from_numpy(to_numpy(jax_params), port_model_config(cfg),
+                             device="cpu")

@@ -166,5 +166,5 @@ def test_codes_wrapper_rejects_what_the_kernel_does_not_take():
         t_codes(*args, **dict(base, page_size=PS * 2))
     with pytest.raises(ValueError):  # the row-sum order is known for these
         t_codes(*args, **dict(base, page_size=48))
-    with pytest.raises(NotImplementedError):  # contiguous layout
+    with pytest.raises(ValueError):  # a pool without its table is no (G, Sk, D)
         t_codes(*args, kv_len=t(c["kv"]))

@@ -56,8 +56,8 @@ def test_checkpoint_round_trip(tmp_path, name, dtype, wrap):
     CheckpointManager(str(tmp_path)).save(
         7, (params, None) if wrap else params)
     pcfg = port_model_config(cfg)
-    loaded = load_reference_checkpoint(tmp_path, pcfg)
-    in_memory = params_from_numpy(to_numpy(params), pcfg)
+    loaded = load_reference_checkpoint(tmp_path, pcfg, device="cpu")
+    in_memory = params_from_numpy(to_numpy(params), pcfg, device="cpu")
     _assert_same(loaded, in_memory)
     assert len(loaded["blocks"]) == cfg.n_layers
     first = np.asarray(params["blocks"]["scan"][0]["attn"]["wq"][0]

@@ -58,6 +58,13 @@ def test_entry_points_raise_without_a_card():
         GenerationEngine(cfg, None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--arch", "gpt2-large", "--continuous"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--arch", "gpt2-large"])
+    from repro_torch.ckpt import load_reference_checkpoint, params_from_numpy
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_numpy({"blocks": {}}, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_reference_checkpoint("no-such-checkpoint", cfg)
 
 
 def test_cpu_request_runs_the_plain_path():
