@@ -51,6 +51,35 @@ Phases, in order; any failure raises and the script exits non-zero:
 8. agree    the bucketed path at 4 layers and the solo path at 2 layers with
             the contiguous and one-tile kernels swapped for their plain
             versions give the same tokens.
+9. kernel API  the public kernel entries at gpt2-large and command-r-35b
+            widths on the card: acam_activation (gelu on a 512-token FFN
+            hidden (512, 5120), silu at command-r's d_ff (256, 22528)),
+            raceit_linear (fc1 (512, 1280) x (1280, 5120), fc2 (512, 5120) x
+            (5120, 1280), a decode fc1 at M = 8; exact ADC and quantizing at
+            adc_bits 8 and 6) and acam_softmax_kernel (staged-prefill rows:
+            20 heads x 512 queries of 512 causally masked keys; decode rows:
+            160 rows of 1024 keys). Each of the LUT, MVM and softmax kernels
+            must launch; small inputs agree with the CPU's plain path bit
+            for bit, and the exact linear layer is within 5% of the float
+            product.
+10. staged  gpt2-large as in phase 6 served with ExecConfig.serving(
+            fused_attention=False), as --staged-attention asks: 4 prompts of
+            64..256 tokens, 16 new tokens, one bucket of 4. The plan must
+            show raceit_staged on both attention slots and raceit_acam on
+            softmax, and no attention kernel may launch (the reference's
+            staged path is jnp, so the port's is plain PyTorch). Prints
+            tokens/s, prefill and decode ms, peak memory, and the share of
+            greedy tokens equal to the fused path's on the same prompts (not
+            gated: the fused kernel's contract with the staged oracle is at
+            most 1 PROB ulp), and the bucket served again under
+            torch.profiler (device time by kernel, idle share).
+
+Phase 3 also holds the LUT kernel (int8 and int32 codes), the crossbar MVM
+kernel (exact, and quantizing at adc_bits 8 and 6) and the Fig.-8 softmax
+kernel (pot, pot_fine, uniform) bit for bit against their plain versions at
+phase 9's shapes, with the time of one PyTorch call computing the same
+function where there is one (an index gather for the LUT, torch._int_mm for
+the exact MVM where its shape rules allow).
 
 The line before the last is one JSON object describing every kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -74,6 +103,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12    # H100 SXM dense int8 tensor-core peak
 SEED = 0
+DEVICE = "cuda"  # the card; phases 3 (new kernels), 9 and 10 read it
 
 
 def check(ok: bool, what: str) -> None:
@@ -455,6 +485,178 @@ def phase_kernels(device_desc: str) -> list:
     return rows
 
 
+# ------------------------------------ phase 3: LUT, MVM and softmax kernels
+
+# the TPU kernel each of this slice's kernels replaces
+NEW_KERNELS = {"acam_lut": "src/repro/kernels/acam_lut.py:25",
+               "acam_mvm": "src/repro/kernels/acam_mvm.py:32",
+               "acam_softmax": "src/repro/kernels/acam_softmax.py:27"}
+LUT_SHAPES = (("gpt2-large gelu", "gelu", 512, 5120),
+              ("command-r silu", "silu", 256, 22528))
+MVM_SHAPES = (("gpt2-large fc1", 512, 1280, 5120),
+              ("gpt2-large fc2", 512, 5120, 1280),
+              ("gpt2-large decode fc1", 8, 1280, 5120))
+SOFTMAX_SHAPES = (("gpt2-large staged prefill", 20, 512, 512),
+                  ("gpt2-large decode at n_ctx", 160, 1, 1024))
+
+
+def bound_of(nbytes: float, ops: float) -> tuple[float, str]:
+    """Least time: bytes over 3.35 TB/s against int8 operations over 1979
+    TOP/s."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations")
+
+
+def check_codes_case(kernel_name, kernel, launch, plain, bound, library=None):
+    """An int32-codes kernel: the wrapper ``kernel()`` against ``plain()``
+    bit for bit (one launch counted), its launch function ``launch()``
+    against the wrapper, the library call (if any) against both; then the
+    times, as `compare_and_time`."""
+    counts = launch_counts
+    before = counts()[kernel_name]
+    got = kernel()
+    check(counts()[kernel_name] == before + 1,
+          f"{kernel_name} was not the kernel launched")
+    want = plain()
+    got_l = launch()
+    torch.cuda.synchronize()
+    diff = (got.long() - want.long()).abs().max().item()
+    check(diff == 0, f"{kernel_name}: differs from plain by {diff}")
+    check(torch.equal(got_l, got),
+          f"{kernel_name}: the launch function differs from the wrapper")
+    ms, host_free = device_ms(launch, 20)
+    wrapper_ms = cuda_ms(kernel, 20)
+    plain_ms, plain_host_free = device_ms(plain, 1, reps=3)
+    plain_call_ms = cuda_ms(plain, 3, warmup=1)
+    library_ms = None
+    if library is not None:
+        check(torch.equal(library().to(torch.int32), got),
+              f"{kernel_name}: the library call computes something else")
+        library_ms = device_ms(library, 20)[0]
+    return dict(kernel=kernel_name, max_abs_err=float(diff), ms=ms,
+                ms_host_free=host_free, wrapper_ms=wrapper_ms,
+                plain_ms=plain_ms, plain_host_free=plain_host_free,
+                plain_call_ms=plain_call_ms, bound_ms=bound[0],
+                bound_by=bound[1], library_ms=library_ms)
+
+
+def report_codes_case(name, r, device_desc):
+    gaps = lambda ok: "" if ok else ", host gaps included"
+    lib = ("no library call computes this function"
+           if r["library_ms"] is None
+           else f"library call {r['library_ms']:.4f} ms")
+    print(f"[kernels] {name} ({r['kernel']}): equal to plain; kernel device "
+          f"{r['ms']:.4f} ms (CUDA events{gaps(r['ms_host_free'])}; wrapper "
+          f"call {r['wrapper_ms']:.4f} ms), plain device {r['plain_ms']:.3f} "
+          f"ms{gaps(r['plain_host_free'])} (call {r['plain_call_ms']:.3f} "
+          f"ms), bound {1e3 * r['bound_ms']:.3f} us ({r['bound_by']}); {lib} "
+          f"({device_desc})", flush=True)
+
+
+def lut_cases(gen):
+    """(name, codes, table, bias) at the activation shapes, int32 codes (as
+    acam_activation passes them) and int8."""
+    from repro_torch.core import ops as acam_ops
+    for name, op_name, rows, cols in LUT_SHAPES:
+        op = acam_ops.get_op(op_name)
+        x = torch.from_numpy(gen.normal(0, 1.5, (rows, cols)).astype(
+            np.float32)).to(DEVICE)
+        codes = op.in_fmt.encode(x)
+        for dtype in (torch.int32, torch.int8):
+            yield (f"{name} ({rows}, {cols}) {str(dtype)[6:]}",
+                   codes.to(dtype), op.lut(DEVICE),
+                   1 << (op.in_fmt.bits - 1))
+
+
+def check_lut_case(x, lut, bias):
+    from repro_torch.kernels import acam_lut as L
+    n = x.numel()
+    bound = bound_of(n * x.element_size() + 4 * n + 4 * lut.numel(), n)
+    return check_codes_case(
+        "acam_lut", lambda: L.acam_lut_2d(x, lut, bias),
+        lambda: L._launch(x, lut, bias),
+        lambda: L.acam_lut_plain(x, lut, bias), bound,
+        library=lambda: lut[x.long() + bias])
+
+
+def xbar_configs():
+    from repro_torch.core.crossbar import CrossbarConfig
+    return (("exact", CrossbarConfig()),
+            ("quantize adc 8", CrossbarConfig(adc_mode="quantize")),
+            ("quantize adc 6", CrossbarConfig(adc_mode="quantize",
+                                              adc_bits=6)))
+
+
+def check_mvm_case(x, w, cfg):
+    from repro_torch.core.crossbar import adc_step
+    from repro_torch.kernels import acam_mvm as M
+    m, k = x.shape
+    n = w.shape[1]
+    planes = (1 if adc_step(cfg, cfg.rows) is None
+              else cfg.num_input_slices * cfg.num_weight_slices)
+    bound = bound_of(m * k + k * n + 4 * m * n, 2 * m * n * k * planes)
+    library = None
+    if planes == 1 and m > 16 and k % 8 == 0 and n % 8 == 0:
+        library = lambda: torch._int_mm(x, w)
+    return check_codes_case(
+        "acam_mvm", lambda: M.acam_mvm(x, w, cfg),
+        lambda: M._launch(x, w, cfg, cfg.rows),
+        lambda: M.acam_mvm_plain(x, w, cfg), bound, library=library)
+
+
+def softmax_rows(gen, heads, queries, keys):
+    """LOGIT codes of ``heads * queries`` rows of ``keys`` keys, the
+    logits of a few LOGIT units; with several queries, query i of each head
+    attends keys <= i (the rest at the LOGIT minimum, as the div-add stage
+    writes masked keys)."""
+    from repro_torch.core.ops import LOGIT_FMT
+    x = torch.from_numpy(gen.normal(0, 3, (heads, queries, keys)).astype(
+        np.float32)).to(DEVICE)
+    codes = LOGIT_FMT.encode(x)
+    if queries > 1:
+        causal = (torch.arange(keys, device=DEVICE)[None, :]
+                  <= torch.arange(queries, device=DEVICE)[:, None])
+        codes = torch.where(causal[None], codes,
+                            torch.full_like(codes, LOGIT_FMT.code_min))
+    return codes.reshape(heads * queries, keys)
+
+
+def check_softmax_case(codes, mode):
+    from repro_torch.kernels import acam_softmax as S
+    n = codes.numel()
+    bound = bound_of(n * codes.element_size() + 4 * n + 4 * 4 * 256, 4 * n)
+    return check_codes_case(
+        "acam_softmax", lambda: S.acam_softmax_codes(codes, mode),
+        lambda: S._launch(codes, mode),
+        lambda: S.acam_softmax_codes_plain(codes, mode), bound)
+
+
+def phase_kernels_new(device_desc: str) -> list:
+    gen = np.random.default_rng(SEED + 6)
+    rows = []
+
+    def record(case, r):
+        report_codes_case(case, r, device_desc)
+        rows.append(dict(case=case, **r))
+    for case, x, lut, bias in lut_cases(gen):
+        record(case, check_lut_case(x, lut, bias))
+    for name, m, k, n in MVM_SHAPES:
+        x = torch.from_numpy(gen.integers(-128, 128, (m, k), dtype=np.int8)
+                             ).to(DEVICE)
+        w = torch.from_numpy(gen.integers(-128, 128, (k, n), dtype=np.int8)
+                             ).to(DEVICE)
+        for label, cfg in xbar_configs():
+            record(f"{name} ({m}, {k}) x ({k}, {n}) {label}",
+                   check_mvm_case(x, w, cfg))
+    for name, heads, queries, keys in SOFTMAX_SHAPES:
+        codes = softmax_rows(gen, heads, queries, keys)
+        for mode in ("pot", "pot_fine", "uniform"):
+            record(f"{name} ({codes.shape[0]}, {keys}) {mode}",
+                   check_softmax_case(codes, mode))
+    return rows
+
+
 # ----------------------------------------------------------------- phase 4
 
 def build_engine(n_layers=None, device="cuda"):
@@ -526,8 +728,7 @@ def phase_main(device_desc: str):
     serve(eng, trace(cfg, n_requests=1, lo=64, hi=64, n_new=2))
     torch.cuda.reset_peak_memory_stats()
     requests = trace(cfg)
-    for key in A.launches:
-        A.launches[key] = 0
+    reset_launches()
     cb, secs, times, peak_pages = serve(eng, requests, timed=True)
     launches = A.launches["acam_attention_paged"]
     for r in requests:
@@ -637,11 +838,24 @@ def shallow(eng, n_layers):
                             device=eng.device)
 
 
-def reset_launches():
+def launch_dicts():
     from repro_torch.kernels import acam_attention as A
-    for key in A.launches:
-        A.launches[key] = 0
-    return A.launches
+    from repro_torch.kernels import acam_lut, acam_mvm, acam_softmax
+    return (A.launches, acam_lut.launches, acam_mvm.launches,
+            acam_softmax.launches)
+
+
+def reset_launches():
+    """Set every kernel's launch count to 0; returns the attention kernels'
+    counts (`launch_counts` reads all six)."""
+    for counts in launch_dicts():
+        for key in counts:
+            counts[key] = 0
+    return launch_dicts()[0]
+
+
+def launch_counts() -> dict:
+    return {k: v for counts in launch_dicts() for k, v in counts.items()}
 
 
 def bucket_trace(cfg, n_requests=16, lo=64, hi=448, n_new=32):
@@ -870,6 +1084,145 @@ def phase_agree_contiguous(gpt2, command_r) -> None:
           f"and plain attention give the same tokens", flush=True)
 
 
+# ----------------------------------------------------------- phase 9
+
+def phase_kernel_api(device_desc: str) -> dict:
+    """The public kernel API on CUDA tensors at the phase-3 shapes; every
+    count is set to 0 just before and read just after."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops as K
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=DEVICE)
+    small = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    for name, op_name, rows, cols in LUT_SHAPES:
+        x = randn(rows, cols)
+        y = K.acam_activation(x, op_name)
+        ref = (F.gelu(x, approximate="tanh") if op_name == "gelu"
+               else F.silu(x))
+        inside = x.abs() < 3.9  # the table's input range is [-4, 3.97]
+        err = (y - ref).abs()[inside].max().item()
+        check(y.shape == x.shape and bool(torch.isfinite(y).all())
+              and err < 0.15, f"acam_activation {op_name}: error {err}")
+        small[f"activation {op_name}"] = (x[:4], lambda t, o=op_name:
+                                          K.acam_activation(t, o))
+    for name, m, k, n in MVM_SHAPES:
+        x = randn(m, k)
+        w = randn(k, n) * 0.02
+        for label, cfg in xbar_configs():
+            y = K.raceit_linear(x, w, cfg)
+            check(y.shape == (m, n) and bool(torch.isfinite(y).all()),
+                  f"raceit_linear {name} {label}: bad output")
+            if label == "exact":
+                ref = x @ w
+                rel = ((y - ref).abs().max() / ref.abs().max()).item()
+                check(rel < 0.05, f"raceit_linear {name}: relative error "
+                                  f"{rel}")
+        small[f"linear {name}"] = (
+            x[:8], lambda t, w=w: torch.cat(
+                [K.raceit_linear(t, w.to(t.device), c) for _, c in
+                 xbar_configs()], dim=1))
+    for name, heads, queries, keys in SOFTMAX_SHAPES:
+        logits = randn(heads * queries, keys) * 3
+        for mode in ("pot", "pot_fine", "uniform"):
+            p = K.acam_softmax_kernel(logits, mode)
+            check(p.shape == logits.shape and bool((p >= 0).all())
+                  and bool((p < 1).all()), f"acam_softmax_kernel {name} "
+                                           f"{mode}: bad output")
+        small[f"softmax {name}"] = (logits[:16], lambda t: torch.cat(
+            [K.acam_softmax_kernel(t, m) for m in ("pot", "pot_fine")]))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    for kernel in NEW_KERNELS:
+        check(counts[kernel] > 0, f"{kernel} was not launched by the kernel "
+                                  f"API")
+    # small inputs: the card's kernels against the CPU's plain versions
+    for what, (t, fn) in small.items():
+        got, want = fn(t), fn(t.cpu())
+        check(torch.equal(got.cpu(), want), f"{what}: the card and the "
+                                            f"CPU's plain path differ")
+    launches = {k: counts[k] for k in NEW_KERNELS}
+    print(f"[api] acam_activation, raceit_linear (exact, adc 8, adc 6) and "
+          f"acam_softmax_kernel at the phase-3 shapes in {secs:.2f} s; "
+          f"launches {launches}; small inputs equal to the CPU's plain "
+          f"path ({', '.join(small)}) ({device_desc})", flush=True)
+    return dict(seconds=secs, launches=launches)
+
+
+# ----------------------------------------------------------- phase 10
+
+def staged_trace(cfg):
+    from repro_torch.serve import Request
+    gen = np.random.default_rng(SEED + 8)
+    return [Request(rid, gen.integers(0, cfg.vocab_size,
+                                      int(gen.integers(64, 257))
+                                      ).astype(np.int32), n_new=16)
+            for rid in range(4)]
+
+
+def phase_staged(gpt2, device_desc: str) -> dict:
+    """gpt2-large with staged attention (``--staged-attention``), one bucket
+    of 4, against the fused path on the same prompts."""
+    from repro_torch.configs.base import ExecConfig
+    from repro_torch.serve import GenerationEngine
+    eng = GenerationEngine(gpt2.cfg, gpt2.params, ExecConfig.serving(
+        mode="raceit", fused_attention=False), max_len=gpt2.max_len,
+        device=gpt2.device)
+    plan = eng.plan
+    check(plan.backend("attention_prefill") == "raceit_staged"
+          and plan.backend("attention_decode") == "raceit_staged"
+          and plan.backend("softmax") == "raceit_acam",
+          "the staged plan does not stage attention:\n" + eng.explain_plan())
+    print("[staged] plan:\n" + eng.explain_plan(), flush=True)
+    serve_buckets(eng, bucket_trace(eng.cfg, n_requests=2, lo=64, hi=80,
+                                    n_new=2))  # warm-up
+    requests = staged_trace(eng.cfg)
+    times: dict = {}
+    timed_engine(eng, times)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    try:
+        sched, done, secs = serve_buckets(eng, requests)
+    finally:
+        untimed_engine(eng)
+    counts = launch_counts()
+    check(all(v == 0 for v in counts.values()),
+          f"the staged path launched kernels: {counts}")
+    for r in requests:
+        check(len(done[r.rid].result) == r.n_new == 16,
+              f"request {r.rid} returned {len(done[r.rid].result)} tokens")
+    tokens = sum(len(done[r.rid].result) for r in requests)
+    profile = profile_run(
+        "the staged bucket again (1 prefill + 15 decode steps)",
+        lambda: serve_buckets(eng, staged_trace(eng.cfg)),
+        lambda: serve_buckets(eng, bucket_trace(eng.cfg, n_requests=2,
+                                                lo=64, hi=80, n_new=2)),
+        {k: 0 for k in KERNEL_NAMES})
+    _, fused, _ = serve_buckets(gpt2, staged_trace(gpt2.cfg))
+    same = sum(int((done[r.rid].result == fused[r.rid].result).sum())
+               for r in requests)
+    res = dict(tokens=tokens, seconds=secs, tokens_per_s=tokens / secs,
+               prefills=len(times["prefill"]),
+               decode_steps=sched.decode_steps,
+               prefill_ms=1e3 * float(np.mean(times["prefill"])),
+               decode_ms=1e3 * float(np.mean(times["decode"])),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               prompt_lens=[len(r.prompt) for r in requests],
+               same_as_fused=same / tokens, launches=counts,
+               profile=profile)
+    print(f"[staged] gpt2-large 36L d1280 raceit_q8 staged attention, one "
+          f"bucket of 4 (prompts {res['prompt_lens']}): {tokens} tokens in "
+          f"{secs:.2f} s = {res['tokens_per_s']:.1f} tok/s; prefill "
+          f"{res['prefill_ms']:.1f} ms, decode step mean "
+          f"{res['decode_ms']:.1f} ms ({sched.decode_steps} steps); peak "
+          f"memory {res['peak_mem_gib']:.2f} GiB; no kernel launched; "
+          f"{same} of {tokens} greedy tokens equal to the fused path's "
+          f"({device_desc})", flush=True)
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
@@ -883,7 +1236,7 @@ def main() -> None:
           f"{torch.cuda.device_count()} device(s)", flush=True)
 
     t0 = time.perf_counter()
-    libs = ("acam_attention", "acam_attention_single")
+    libs = build.SOURCES
     build.build_all(libs)
     print(f"[build] {', '.join(libs)}: {time.perf_counter() - t0:.1f} s "
           f"(nvcc sm_90a, in parallel)", flush=True)
@@ -894,6 +1247,7 @@ def main() -> None:
 
     t_start = time.perf_counter()
     kernel_rows = phase_kernels(desc)
+    new_rows = phase_kernels_new(desc)
     main_res, eng = phase_main(desc)
     prof_res = phase_profile(eng, main_res)
     del eng
@@ -903,8 +1257,12 @@ def main() -> None:
     solo_res, command_r = phase_solo(desc)
     prof2_res = phase_profile_contiguous(gpt2, command_r)
     phase_agree_contiguous(gpt2, command_r)
-    del gpt2, command_r
-    print(f"[time] phases 3 to 8: {time.perf_counter() - t_start:.1f} s",
+    del command_r
+    torch.cuda.empty_cache()
+    api_res = phase_kernel_api(desc)
+    staged_res = phase_staged(gpt2, desc)
+    del gpt2
+    print(f"[time] phases 3 to 10: {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     # each kernel's headline: its main-path decode shape in mode pot
@@ -932,11 +1290,30 @@ def main() -> None:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": None})
-    print("[record] " + json.dumps({"cases": kernel_rows, "main": main_res,
-                                    "profile": prof_res,
+    # this slice's kernels: the kernel API's shapes (mode pot, exact ADC,
+    # the int32 codes acam_activation passes), launches of phase 9
+    new_heads = {"acam_lut": "gpt2-large gelu (512, 5120) int32",
+                 "acam_mvm": "gpt2-large fc1 (512, 1280) x (1280, 5120) exact",
+                 "acam_softmax": "gpt2-large staged prefill (10240, 512) pot"}
+    for name, case in new_heads.items():
+        head = next(r for r in new_rows if r["case"] == case)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": NEW_KERNELS[name],
+            "launches": api_res["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in new_rows
+                               if r["kernel"] == name),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"]})
+    print("[record] " + json.dumps({"cases": kernel_rows + new_rows,
+                                    "main": main_res, "profile": prof_res,
                                     "bucketed": bucket_res,
                                     "solo": solo_res,
-                                    "profile_contiguous": prof2_res}),
+                                    "profile_contiguous": prof2_res,
+                                    "kernel_api": api_res,
+                                    "staged": staged_res}),
           flush=True)
     print(desc, flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -16,17 +16,27 @@ spells out:
   the multiply and the following ``- e_min`` contract into one more fused
   multiply-add. The encoder rounds that value, so a one-ulp difference
   would flip a code at half-step boundaries.
+* ``jnp.exp2(e)`` is ``exp(f32(ln 2) * e)``. A constant table folds it with
+  a correctly rounded ``expf`` (`pot_decode_f32`); at run time XLA's CPU
+  evaluates the Cephes polynomial with fused multiply-adds (`ref_exp`),
+  which is one ulp off at some arguments, so a runtime PoT decode
+  (`PoTFormat.decode` on a tensor, `pot_decode_runtime`) has other values.
+* ``jnp.sum`` over the last axis adds runs of 32 elements one by one, then
+  sums the run totals by the same rule (`sum_chunks`, `ref_sum`).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
 __all__ = [
     "FixedPointFormat", "ScaledFormat", "PoTFormat", "QuantizedTensor",
-    "quantize_tensor", "recip_scale", "ref_log", "ref_log2",
+    "quantize_tensor", "recip_scale", "ref_log", "ref_log2", "ref_exp",
+    "ref_sum", "sum_chunks", "pot_encode", "pot_decode_f32",
+    "pot_decode_runtime", "runtime_pot_values", "scale_product",
 ]
 
 _F32 = np.float32
@@ -86,6 +96,90 @@ def ref_log(x: torch.Tensor) -> torch.Tensor:
 def ref_log2(x: torch.Tensor) -> torch.Tensor:
     """float32 ``jnp.log2`` as the reference's jitted graphs compute it."""
     return ref_log(x) * INV_LN2
+
+
+# Cephes expf coefficients (XLA's CPU exp for float32)
+_EXP_P = [float(_F32(c)) for c in (
+    1.9875691500E-4, 1.3981999507E-3, 8.3334519073E-3, 4.1665795894E-2,
+    1.6666665459E-1, 5.0000001201E-1)]
+LN2_F32 = _F32(np.log(2.0))
+
+
+def ref_exp(x: torch.Tensor) -> torch.Tensor:
+    """float32 exp as XLA's CPU backend evaluates it at run time.
+
+    The Cephes range reduction and polynomial, every multiply-add fused
+    (tests/test_torch_xla_numerics.py holds it to XLA on 4 M random
+    arguments and on every float32 of five binade ranges). It differs from
+    a correctly rounded ``expf`` by one ulp at about one argument in ten.
+    """
+    x = torch.clamp(x.float(), -104.0, 88.8)
+    n = torch.floor(_fma(x, float(_F32(1.44269504088896341)), 0.5))
+    n = torch.clamp(n, -127, 127)
+    a = _fma(n, float(_F32(-0.693359375)), x)
+    a = _fma(n, float(_F32(2.12194440e-4)), a)
+    p = _EXP_P
+    z = _fma(a, p[0], p[1])
+    for c in p[2:]:
+        z = _fma(z, a, c)
+    z = _fma(z, a * a, a)
+    pow2 = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    return (1.0 + z) * pow2
+
+
+def sum_chunks(n: int) -> list:
+    """How XLA's CPU backend splits a sum of ``n`` elements into runs: each
+    run is added element by element, and the list of run totals is summed
+    again by this rule until one value is left (`ref_sum`).
+
+    Runs of 32; when n is not a multiple of 32 the first run and the
+    remainder are split into two halves, the larger first (n = 32m + r,
+    0 < r < 32, m >= 1: [ceil((32+r)/2)] + [32]*(m-1) + [floor((32+r)/2)]).
+    Measured on jitted sums for every n up to 4096
+    (tests/test_torch_xla_numerics.py).
+    """
+    m, r = divmod(n, 32)
+    if m == 0:
+        return [n]
+    if r == 0:
+        return [32] * m
+    return [(32 + r + 1) // 2] + [32] * (m - 1) + [(32 + r) // 2]
+
+
+_RUN_INDEX: dict = {}
+
+
+def _run_index(n: int, device) -> torch.Tensor:
+    """(runs, 32) positions of `sum_chunks(n)`'s runs; n marks padding."""
+    key = (n, str(device))
+    if key not in _RUN_INDEX:
+        runs = sum_chunks(n)
+        idx = np.full((len(runs), max(runs)), n, np.int64)
+        start = 0
+        for c, length in enumerate(runs):
+            idx[c, :length] = np.arange(start, start + length)
+            start += length
+        _RUN_INDEX[key] = torch.from_numpy(idx).to(device)
+    return _RUN_INDEX[key]
+
+
+def ref_sum(e: torch.Tensor) -> torch.Tensor:
+    """float32 sum over the last axis in the order of `sum_chunks`.
+
+    Each level gathers its runs into a (..., runs, 32) tensor, zero-padded
+    (adding an exact zero changes no sum), and adds the 32 columns in order.
+    """
+    if e.shape[-1] == 0:
+        return e.new_zeros(e.shape[:-1])
+    while e.shape[-1] > 1:
+        idx = _run_index(e.shape[-1], e.device)
+        padded = torch.cat([e, e.new_zeros(e.shape[:-1] + (1,))], dim=-1)
+        g = padded[..., idx]
+        acc = g[..., 0]
+        for j in range(1, g.shape[-1]):
+            acc = acc + g[..., j]
+        e = acc
+    return e[..., 0]
 
 
 def _is_tensor(x) -> bool:
@@ -210,6 +304,8 @@ class ScaledFormat:
         return c.astype(np.int32)
 
     def decode(self, code):
+        if _is_tensor(code):
+            return code.float() * float(_F32(self.scale))
         return code.astype(np.float32) * self.scale
 
     def to_unsigned(self, code):
@@ -233,8 +329,10 @@ class PoTFormat:
     """Power-of-Two quantization for non-negative values (exp outputs).
 
     Code 0 represents exactly 0; code c >= 1 represents
-    2^(e_min + (c-1)*octave_step). The methods are the table compiler's
-    (numpy, float64); the serving path uses `pot_encode`/`pot_decode_f32`.
+    2^(e_min + (c-1)*octave_step). On numpy arrays the methods are the
+    table compiler's (float64); on tensors they are the reference's jitted
+    float32 graph: `pot_encode`, and the runtime decode `pot_decode_runtime`
+    as a gather from its 2^bits values.
     """
 
     e_min: int
@@ -250,6 +348,8 @@ class PoTFormat:
         return self.e_min + (self.num_codes - 2) * self.octave_step
 
     def encode(self, x):
+        if _is_tensor(x):
+            return pot_encode(x.float(), self.e_min, self.octave_step)
         x = np.asarray(x, np.float64)
         safe = np.maximum(x, 2.0 ** (self.e_min - 1))
         e = np.clip(np.round((np.log2(safe) - self.e_min) / self.octave_step),
@@ -258,6 +358,8 @@ class PoTFormat:
         return np.where(x < 2.0 ** (self.e_min - self.octave_step / 2), 0, code)
 
     def decode(self, code):
+        if _is_tensor(code):
+            return runtime_pot_values(self, code.device)[code.long()]
         e = (code - 1).astype(np.float64) * self.octave_step + self.e_min
         val = np.exp2(np.minimum(e, 126.0))
         return np.where(code == 0, 0.0, val)
@@ -299,6 +401,30 @@ def pot_decode_f32(code: np.ndarray, e_min: float, octave_step: float
     return np.where(code == 0, _F32(0), val).astype(_F32)
 
 
+def pot_decode_runtime(code, e_min: float, octave_step: float) -> np.ndarray:
+    """float32 PoT decode as a jitted reference graph evaluates it on codes
+    known only at run time: ``exp2(min(e, 126))`` with XLA's runtime exp
+    (`ref_exp`), not the correctly rounded one of folded constants."""
+    code = np.asarray(code, np.int64)
+    e = ((code - 1).astype(_F32) * _F32(octave_step) + _F32(e_min)).astype(_F32)
+    arg = (LN2_F32 * np.minimum(e, _F32(126.0))).astype(_F32)
+    val = ref_exp(torch.from_numpy(arg)).numpy()
+    return np.where(code == 0, _F32(0), val).astype(_F32)
+
+
+_POT_VALUES: dict = {}
+
+
+def runtime_pot_values(fmt: "PoTFormat", device) -> torch.Tensor:
+    """`pot_decode_runtime` of every code of ``fmt``, float32 on ``device``."""
+    key = (fmt, str(device))
+    if key not in _POT_VALUES:
+        vals = pot_decode_runtime(np.arange(fmt.num_codes), fmt.e_min,
+                                  fmt.octave_step)
+        _POT_VALUES[key] = torch.from_numpy(vals).to(device)
+    return _POT_VALUES[key]
+
+
 @dataclasses.dataclass
 class QuantizedTensor:
     """Symmetric-quantized integer tensor + scale (per-tensor or per-channel)."""
@@ -306,6 +432,21 @@ class QuantizedTensor:
     codes: torch.Tensor  # int8 / int32
     scale: torch.Tensor  # f32, broadcastable to codes
     bits: int = 8
+    amax: Optional[torch.Tensor] = None  # max(|x|, 1e-12) behind the scale
+
+
+def scale_product(a: QuantizedTensor, b: QuantizedTensor) -> torch.Tensor:
+    """``a.scale * b.scale`` as a jitted reference graph computes it.
+
+    Each scale is ``amax * f32(1/qmax)``; XLA moves the two constants out of
+    the product and folds them, so the product is ``(amax_a * amax_b) *
+    f32(c_a * c_b)``, which often differs from the product of the two
+    rounded scales in the last bit. (Eager code, and products where one
+    side is broadcast against an array, keep the plain product.)
+    """
+    c = _F32(_F32(1) / _F32(_qrange(a.bits))) * _F32(
+        _F32(1) / _F32(_qrange(b.bits)))
+    return (a.amax * b.amax) * float(_F32(c))
 
 
 def _qrange(bits: int) -> int:
@@ -324,4 +465,5 @@ def quantize_tensor(x: torch.Tensor, bits: int = 8, axis=None) -> QuantizedTenso
     scale = recip_scale(amax, qmax)
     codes = torch.clamp(torch.round(x / scale), -qmax - 1, qmax)
     dtype = torch.int8 if bits <= 8 else torch.int32
-    return QuantizedTensor(codes.to(dtype), scale.float(), bits)
+    return QuantizedTensor(codes.to(dtype), scale.float(), bits,
+                           torch.clamp_min(amax, float(_F32(1e-12))).float())

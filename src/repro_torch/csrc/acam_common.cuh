@@ -87,7 +87,7 @@ __device__ __forceinline__ void load_words(int* dst, int dst_stride,
 }
 
 // How the reference sums a key block of n keys (sum_chunks in
-// repro_torch/kernels/acam_attention.py): runs added key by key, the run
+// repro_torch/core/quant.py): runs added key by key, the run
 // totals then added in order. Runs of 32; when 32 does not divide n (and
 // n > 32) the first run and the remainder split into two halves.
 __device__ __forceinline__ int n_chunks(int n) {

@@ -1,15 +1,17 @@
 """Backend registrations for the op slots of the serving paths.
 
 The port of `repro.exec.backends`, restricted to what
-``ExecConfig.serving()`` and the digital baseline resolve on a decoder-only
-all-attention model, served paged, bucketed or solo: matmul
-``digital``/``raceit_int`` (resident int8 weights go through
-`_resident_matmul` in both), activation ``digital``/``raceit_lut``,
-attention_prefill ``digital``/``raceit_fused``, the attention_decode fused
-family (``raceit_fused``, ``raceit_gqa_native``, the per-row ``*_rows`` and
-the paged ``*_paged``, which serve contiguous callers too) and ``digital``,
-and lm_head ``digital``. Names, notes and capability predicates are the
-reference's, so both packages resolve the same plan.
+``ExecConfig.serving()`` (fused or staged attention) and the digital
+baseline resolve on a decoder-only all-attention model, served paged,
+bucketed or solo: matmul ``digital``/``raceit_int`` (resident int8 weights
+go through `_resident_matmul` in both), activation ``digital``/
+``raceit_lut``, softmax ``digital``/``raceit_acam``, dd_matmul ``int``,
+attention_prefill ``digital``/``raceit_staged``/``raceit_fused``, the
+attention_decode fused family (``raceit_fused``, ``raceit_gqa_native``, the
+per-row ``*_rows`` and the paged ``*_paged``, which serve contiguous
+callers too), ``raceit_staged`` and ``digital``, and lm_head ``digital``.
+Names, notes and capability predicates are the reference's, so both
+packages resolve the same plan.
 """
 from __future__ import annotations
 
@@ -17,7 +19,10 @@ import torch
 import torch.nn.functional as F
 
 from ..core import ops as acam_ops
+from ..core.attention import dd_matmul_codes
+from ..core.ops import LOGIT_FMT
 from ..core.quant import quantize_tensor
+from ..core.softmax import acam_softmax
 from ..models import layers
 from ..models.layers import NEG_INF, QuantizedWeight
 from .registry import register
@@ -143,6 +148,29 @@ def _activation_raceit_lut(plan, x, name=None):
 
 
 # ---------------------------------------------------------------------------
+# softmax (standalone rows: the MoE router, the staged decode scores)
+# ---------------------------------------------------------------------------
+
+@register("softmax", "digital")
+def _softmax_digital(plan, logits, axis):
+    return torch.softmax(logits, dim=axis)
+
+
+@register("softmax", "raceit_acam")
+def _softmax_raceit_acam(plan, logits, axis):
+    return acam_softmax(logits, axis=axis, mode=plan.exec_cfg.softmax_mode)
+
+
+# ---------------------------------------------------------------------------
+# dd_matmul (data-dependent matmuls on int8 codes: q.K^T, probs.V)
+# ---------------------------------------------------------------------------
+
+@register("dd_matmul", "int")
+def _dd_matmul_int(plan, a_codes, b_codes):
+    return dd_matmul_codes(a_codes, b_codes, fidelity="int")
+
+
+# ---------------------------------------------------------------------------
 # attention_prefill (full / prefill attention)
 # ---------------------------------------------------------------------------
 # Interface: impl(plan, q, k, v, *, scale, q_offset, kind, window, chunk,
@@ -179,6 +207,19 @@ def _prefill_digital(plan, q, k, v, *, scale, q_offset, kind, window, chunk,
     mask_fn = _mask_fn(kind, sk, q_offset, window)
     return layers._chunked_attention(q, k, v, mask_fn, min(chunk, sk), scale,
                                      probs_dtype, pad_lens=pad_lens)
+
+
+@register("attention_prefill", "raceit_staged", notes=_SEQ_NOTE)
+def _prefill_raceit_staged(plan, q, k, v, *, scale, q_offset, kind, window,
+                           chunk, probs_dtype=None, pad_lens=None):
+    sk = k.shape[1]
+    if sk > RACEIT_ATTENTION_MAX_KEYS:
+        return _prefill_digital(plan, q, k, v, scale=scale, q_offset=q_offset,
+                                kind=kind, window=window, chunk=chunk,
+                                probs_dtype=probs_dtype, pad_lens=pad_lens)
+    mask = _mask_array(kind, q.shape[0], q.shape[1], sk, q_offset, window,
+                       pad_lens, device=q.device)
+    return layers._raceit_staged_attention(q, k, v, mask, scale, plan)
 
 
 @register("attention_prefill", "raceit_fused", supported=_fused_supported,
@@ -242,6 +283,16 @@ def _decode_digital(plan, q, k, v, *, kv_len, scale, pad_valid=None):
     valid = _decode_valid(k, kv_len, pad_valid)
     s = _decode_mask_scores(s, valid, NEG_INF)
     return _decode_combine(torch.softmax(s, dim=-1), v)
+
+
+@register("attention_decode", "raceit_staged",
+          notes="float scores + ACAM softmax (the pre-PR2 serving decode)")
+def _decode_raceit_staged(plan, q, k, v, *, kv_len, scale, pad_valid=None):
+    s = _decode_scores(q, k, k.shape[2], scale)
+    valid = _decode_valid(k, kv_len, pad_valid)
+    s = _decode_mask_scores(s, valid, LOGIT_FMT.min_value)
+    pr = acam_softmax(s, axis=-1, mode=plan.exec_cfg.softmax_mode)
+    return _decode_combine(pr, v)
 
 
 def _flatten_row_lens(k, kv_len, pad_valid):

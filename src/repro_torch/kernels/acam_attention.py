@@ -36,14 +36,16 @@ import torch
 
 from ..core import ops as acam_ops
 from ..core.ops import LOGIT_FMT, PROB_FMT
-from ..core.quant import PoTFormat, pot_decode_f32, pot_encode, recip_scale
+from ..core.quant import (PoTFormat, pot_decode_f32, pot_encode, recip_scale,
+                          ref_sum, sum_chunks)
 
 __all__ = ["acam_attention_codes", "acam_attention_codes_plain",
            "acam_attention_contiguous_plain", "acam_attention_single_plain",
            "acam_attention_decode_codes", "acam_attention_decode_gqa_codes",
            "softmax_tables", "requant_scale", "requant_code_table",
            "sum_chunks", "key_block", "one_tile", "FUSED_SOFTMAX_MODES",
-           "DEFAULT_BLOCK_Q", "DEFAULT_BLOCK_K", "DEFAULT_BLOCK_G", "launches"]
+           "DEFAULT_BLOCK_Q", "DEFAULT_BLOCK_K", "DEFAULT_BLOCK_G", "launches",
+           "pot_consts"]
 
 FUSED_SOFTMAX_MODES = ("pot", "pot_fine", "uniform")
 
@@ -121,44 +123,12 @@ def requant_code_table(cmax: torch.Tensor, prob_lut: torch.Tensor) -> torch.Tens
                        -128, 127).to(torch.int32)
 
 
-
-
 def _check_page_size(page_size: int) -> None:
     # the paged kernel adds each page's keys in runs of 32 (`sum_chunks`
     # of a page), which is the reference's order for these sizes
     if not (page_size <= 32 or page_size % 32 == 0):
         raise ValueError(f"page_size must be <= 32 or a multiple of 32 "
                          f"(the row-sum order), got {page_size}")
-
-
-def sum_chunks(n: int) -> list:
-    """How XLA's CPU backend sums one key block of ``n`` keys: a list of
-    runs, each added key by key, the run totals then added in order.
-
-    Runs of 32; when n is not a multiple of 32 the first run and the
-    remainder are split into two halves, the larger first (n = 32m + r,
-    0 < r < 32, m >= 1: [ceil((32+r)/2)] + [32]*(m-1) + [floor((32+r)/2)]).
-    Measured on the interpret-mode kernels for every n up to 1024; blocks
-    never exceed 512 keys.
-    """
-    m, r = divmod(n, 32)
-    if m == 0:
-        return [n]
-    if r == 0:
-        return [32] * m
-    return [(32 + r + 1) // 2] + [32] * (m - 1) + [(32 + r) // 2]
-
-
-def _block_sum(e: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis in the reference's order (`sum_chunks`)."""
-    total, t0 = None, 0
-    for n in sum_chunks(e.shape[-1]):
-        s = e[..., t0]
-        for t in range(t0 + 1, t0 + n):
-            s = s + e[..., t]
-        total = s if total is None else total + s
-        t0 += n
-    return total
 
 
 def key_block(Sk: int) -> int:
@@ -239,7 +209,7 @@ def _two_pass_plain(q, k, v, s1, mask, lens, per_row, mode, cmax_floor,
         e = torch.nn.functional.pad(e, (0, pad))
     S = torch.zeros(xc.shape[:2], dtype=torch.float32, device=q.device)
     for j in range(e.shape[-1] // bk):
-        S = S + _block_sum(e[..., j * bk:(j + 1) * bk])
+        S = S + ref_sum(e[..., j * bk:(j + 1) * bk])
     xmax = torch.where(valid, xc, torch.full_like(xc, LOGIT_FMT.code_min)
                        ).amax(-1)
     L, cmax = _row_finish(S, xmax, lens, per_row, log_lut, prob_lut, e_min,
@@ -295,7 +265,7 @@ def acam_attention_single_plain(q_codes, k_codes, v_codes, logit_scale,
              < lens[:, None, None])
     e = torch.where(valid, exp_val[(xc + 128).long()],
                     torch.zeros((), device=q_codes.device))
-    S = _block_sum(torch.nn.functional.pad(e, (0, skp - Sk)))
+    S = ref_sum(torch.nn.functional.pad(e, (0, skp - Sk)))
     xmax = torch.where(valid, xc, torch.full_like(xc, LOGIT_FMT.code_min)
                        ).amax(-1)
     L, cmax = _row_finish(S, xmax, lens, per_row, log_lut, prob_lut, e_min,
@@ -305,17 +275,13 @@ def acam_attention_single_plain(q_codes, k_codes, v_codes, logit_scale,
 
 
 def _bind(lib_name: str, fn_name: str, argtypes):
-    import ctypes
-
-    from .build import library  # built at first launch, never at import
-    fn = getattr(library(lib_name), fn_name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
+    from .build import bind  # built at first launch, never at import
+    return bind(lib_name, fn_name, argtypes)
 
 
-def _pot_consts(e_min: float, step: float):
+def pot_consts(e_min: float, step: float):
+    """The PoT encoder's float32 constants as the kernels take them (e_min,
+    1/step, 2^(e_min-1), the zero threshold 2^(e_min-step/2))."""
     return (float(_F32(e_min)), float(_F32(1.0 / step)),
             float(_F32(2.0 ** (e_min - 1))),
             float(_F32(2.0 ** (e_min - step / 2))))
@@ -353,7 +319,7 @@ def _launch_paged(q_codes, k_codes, v_codes, logit_scale, mask, kv_len, mode,
                  mask_ptr, mask_div, s1.data_ptr(), exp_val.data_ptr(),
                  log_lut.data_ptr(), prob_lut.data_ptr(), out.data_ptr(),
                  row_sum.data_ptr(), cmax.data_ptr(), G, Sq, D, page_size,
-                 max_pages, groups_per_slot, *_pot_consts(e_min, step), fs,
+                 max_pages, groups_per_slot, *pot_consts(e_min, step), fs,
                  stream)
         if err != 0:
             raise RuntimeError(f"acam_attention pass {'AB'[pass_id]} launch "
@@ -378,7 +344,7 @@ def _contiguous_args(q_codes, logit_scale, mask, q_offset, mode):
         mask_ptr, mask_div = mask.data_ptr(), q_codes.shape[0] // mask.shape[0]
     args = (mask_ptr, mask_div, s1.data_ptr(), qoff.data_ptr(),
             exp_val.data_ptr(), log_lut.data_ptr(), prob_lut.data_ptr())
-    return (s1, qoff), args, (*_pot_consts(e_min, step), fs)
+    return (s1, qoff), args, (*pot_consts(e_min, step), fs)
 
 
 def _launch_contiguous(q_codes, k_codes, v_codes, logit_scale, mask, lens,

@@ -16,8 +16,12 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "library", "build_all",
-           "build_log", "find_nvcc"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "SOURCES", "library", "bind",
+           "build_all", "build_log", "find_nvcc"]
+
+# every csrc/<name>.cu of the port
+SOURCES = ("acam_attention", "acam_attention_single", "acam_lut", "acam_mvm",
+           "acam_softmax")
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -88,3 +92,13 @@ def library(name: str) -> ctypes.CDLL:
             build_all([name])
         _LIBS[name] = ctypes.CDLL(str(out))
     return _LIBS[name]
+
+
+def bind(lib_name: str, fn_name: str, argtypes):
+    """The C function ``fn_name`` of ``csrc/<lib_name>.cu``, its argument
+    types set and its result the CUDA error code (an int)."""
+    fn = getattr(library(lib_name), fn_name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn

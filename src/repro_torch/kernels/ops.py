@@ -1,6 +1,11 @@
-"""Float wrappers over the attention kernel, and their quantizer helpers.
+"""The public kernel API: float wrappers over the kernels, and the
+quantizer helpers of the attention wrappers.
 
-The port of the serving part of `repro.kernels.ops`. The paged wrappers
+The port of `repro.kernels.ops`. `acam_activation` runs a named
+Compute-ACAM activation through the LUT kernel, `raceit_linear` a float
+linear layer through the crossbar MVM kernel, and `acam_softmax_kernel`
+(re-exported) float logits through the softmax kernel; like the
+reference, they run eagerly. The paged attention wrappers
 quantize float q (whole tensor) and the float KV page pool (per page, with
 one scale over the union of live page entries), run `acam_attention_codes`,
 and descale with the oracle's PROB requant scale; the contiguous decode
@@ -11,22 +16,114 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
-from ..core.quant import quantize_tensor, recip_scale
+from ..core import ops as acam_ops
+from ..core.crossbar import CrossbarConfig
+from ..core.quant import (QuantizedTensor, quantize_tensor, recip_scale,
+                          scale_product)
 from .acam_attention import (  # noqa: F401
     FUSED_SOFTMAX_MODES, acam_attention_codes, acam_attention_decode_codes,
     acam_attention_decode_gqa_codes, requant_scale)
+from .acam_lut import acam_lut, acam_lut_2d  # noqa: F401
+from .acam_mvm import acam_mvm  # noqa: F401
+from .acam_softmax import acam_softmax_codes, acam_softmax_kernel  # noqa: F401
 
-__all__ = ["prob_requant_scale", "masked_prefix_quantize",
-           "page_valid_lengths", "masked_page_quantize", "expand_row_lens",
+__all__ = ["acam_activation", "raceit_linear", "acam_lut", "acam_lut_2d",
+           "acam_mvm", "acam_softmax_codes", "acam_softmax_kernel",
+           "raceit_attention_fused", "prob_requant_scale", "prob_descale",
+           "masked_prefix_quantize", "prefix_quantize_tensor",
+           "page_valid_lengths", "masked_page_quantize",
+           "page_quantize_tensor", "expand_row_lens",
            "raceit_attention_decode_paged",
            "raceit_attention_decode_gqa_paged"]
+
+
+def acam_activation(x: torch.Tensor, name: str = "gelu") -> torch.Tensor:
+    """Float tensor through a named Compute-ACAM activation (kernelized)."""
+    op = acam_ops.get_op(name)
+    codes = op.in_fmt.encode(x.float())
+    out = acam_lut(codes, op.lut(x.device), bias=1 << (op.in_fmt.bits - 1))
+    return op.out_fmt.decode(out)
+
+
+def raceit_linear(x: torch.Tensor, w: torch.Tensor,
+                  cfg: CrossbarConfig = CrossbarConfig()) -> torch.Tensor:
+    """Float linear layer on the kernelized crossbar DPE lane."""
+    xq = quantize_tensor(x.float(), bits=cfg.input_bits)
+    wq = quantize_tensor(w.float(), bits=cfg.weight_bits, axis=1)
+    lead = x.shape[:-1]
+    y = acam_mvm(xq.codes.reshape(-1, x.shape[-1]), wq.codes, cfg)
+    return (y.float() * (xq.scale * wq.scale)).reshape(*lead, -1)
+
+
+def raceit_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           mask: Optional[torch.Tensor] = None,
+                           softmax_mode: str = "pot", q_offset=0,
+                           causal: bool = False) -> torch.Tensor:
+    """Fused Fig.-12 attention, float in/out: q/k/v (B, H, S, D), ``mask``
+    broadcastable to (B, H, Sq, Sk). The drop-in for the staged
+    `repro_torch.core.attention.raceit_attention`.
+
+    The kernels take 1/sqrt(D) folded into the logit scale, which is exact
+    (and so the reference's multiply-then-divide) only when sqrt(D) is a
+    power of two; other head dims are not ported here.
+    """
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    sqrt_d = np.sqrt(np.float32(D), dtype=np.float32)
+    if float(np.log2(sqrt_d)) % 1.0:
+        raise NotImplementedError(
+            f"head dim {D}: the in-kernel division by sqrt(d) is not ported; "
+            f"head dims whose square root is a power of two fold it exactly")
+    qq = quantize_tensor(q, bits=8)
+    kq = quantize_tensor(k, bits=8)
+    vq = quantize_tensor(v, bits=8)
+    if mask is not None:
+        mask = mask.expand(B, H, Sq, Sk).reshape(B * H, Sq, Sk)
+    rows = lambda c, n: c.reshape(B * H, n, D).contiguous()
+    out32, cmax = acam_attention_codes(
+        rows(qq.codes, Sq), rows(kq.codes, Sk), rows(vq.codes, Sk),
+        scale_product(qq, kq) / float(sqrt_d), mask, q_offset=q_offset,
+        mode=softmax_mode, causal=causal)
+    return (out32.float() * prob_descale(cmax, vq)).reshape(B, H, Sq, D)
 
 
 def prob_requant_scale(cmax: torch.Tensor) -> torch.Tensor:
     """The oracle's PROB re-quantization scale (see `requant_scale`)."""
     return requant_scale(cmax).float()
+
+
+def prob_descale(cmax: torch.Tensor, vq: QuantizedTensor) -> torch.Tensor:
+    """``prob_requant_scale(cmax) * vq.scale`` as the reference's jitted
+    graph multiplies the two quantizer scales (`scale_product`); the PROB
+    requantization's amax is the max PROB value, cmax / 256."""
+    pq = QuantizedTensor(None, prob_requant_scale(cmax), 8, torch.clamp_min(
+        cmax.float() * 2.0 ** -8, float(np.float32(1e-12))))
+    return scale_product(pq, vq)
+
+
+def _masked_quantize(x: torch.Tensor, valid: torch.Tensor) -> QuantizedTensor:
+    """One int8 scale over the ``valid`` entries of ``x`` (padded with
+    zeros, so the max over their union); other entries get code 0."""
+    amax = torch.where(valid, x.abs(), torch.zeros((), device=x.device)).amax()
+    scale = recip_scale(amax, 127).float()
+    codes = torch.clamp(torch.round(x / scale), -128, 127).to(torch.int8)
+    return QuantizedTensor(torch.where(valid, codes, torch.zeros_like(codes)),
+                           scale, 8, torch.clamp_min(amax, float(
+                               np.float32(1e-12))))
+
+
+def prefix_quantize_tensor(x: torch.Tensor, kv_len, axis: int = 2
+                           ) -> QuantizedTensor:
+    """`masked_prefix_quantize` as a `QuantizedTensor` (with its amax)."""
+    shape = tuple(x.shape[axis] if d == axis else 1 for d in range(x.ndim))
+    idx = torch.arange(x.shape[axis], device=x.device).reshape(shape)
+    kvl = torch.as_tensor(kv_len, device=x.device).to(torch.int32)
+    if kvl.ndim == 1:  # per-row prefixes along the leading batch dim
+        kvl = kvl.reshape((-1,) + (1,) * (x.ndim - 1))
+    return _masked_quantize(x, idx < kvl)
 
 
 def masked_prefix_quantize(x: torch.Tensor, kv_len, axis: int = 2):
@@ -37,16 +134,8 @@ def masked_prefix_quantize(x: torch.Tensor, kv_len, axis: int = 2):
     reduces over the union of the rows' valid prefixes, and entries past
     each row's prefix get code 0. Returns (codes int8, scale f32).
     """
-    shape = tuple(x.shape[axis] if d == axis else 1 for d in range(x.ndim))
-    idx = torch.arange(x.shape[axis], device=x.device).reshape(shape)
-    kvl = torch.as_tensor(kv_len, device=x.device).to(torch.int32)
-    if kvl.ndim == 1:  # per-row prefixes along the leading batch dim
-        kvl = kvl.reshape((-1,) + (1,) * (x.ndim - 1))
-    valid = idx < kvl
-    amax = torch.where(valid, x.abs(), torch.zeros((), device=x.device)).amax()
-    scale = recip_scale(amax, 127).float()
-    codes = torch.clamp(torch.round(x / scale), -128, 127).to(torch.int8)
-    return torch.where(valid, codes, torch.zeros_like(codes)), scale
+    q = prefix_quantize_tensor(x, kv_len, axis)
+    return q.codes, q.scale
 
 
 def page_valid_lengths(block_table: torch.Tensor, kv_len: torch.Tensor,
@@ -67,6 +156,15 @@ def page_valid_lengths(block_table: torch.Tensor, kv_len: torch.Tensor,
     return pv
 
 
+def page_quantize_tensor(x: torch.Tensor, page_valid: torch.Tensor
+                         ) -> QuantizedTensor:
+    """`masked_page_quantize` as a `QuantizedTensor` (with its amax)."""
+    shape = (1, -1) + (1,) * (x.ndim - 2)
+    idx = torch.arange(x.shape[1], device=x.device).reshape(shape)
+    return _masked_quantize(
+        x, idx < page_valid.reshape((-1,) + (1,) * (x.ndim - 1)))
+
+
 def masked_page_quantize(x: torch.Tensor, page_valid: torch.Tensor):
     """Quantize a page pool (n_pages, page_size, ...) over its live entries.
 
@@ -74,13 +172,8 @@ def masked_page_quantize(x: torch.Tensor, page_valid: torch.Tensor):
     over the union of live prefixes), and round(x / scale) elementwise;
     invalid rows (stale pages, tails, the trash page) get code 0.
     """
-    shape = (1, -1) + (1,) * (x.ndim - 2)
-    idx = torch.arange(x.shape[1], device=x.device).reshape(shape)
-    valid = idx < page_valid.reshape((-1,) + (1,) * (x.ndim - 1))
-    amax = torch.where(valid, x.abs(), torch.zeros((), device=x.device)).amax()
-    scale = recip_scale(amax, 127).float()
-    codes = torch.clamp(torch.round(x / scale), -128, 127).to(torch.int8)
-    return torch.where(valid, codes, torch.zeros_like(codes)), scale
+    q = page_quantize_tensor(x, page_valid)
+    return q.codes, q.scale
 
 
 def expand_row_lens(kv_len: torch.Tensor, rep: int) -> torch.Tensor:
@@ -89,18 +182,12 @@ def expand_row_lens(kv_len: torch.Tensor, rep: int) -> torch.Tensor:
     return torch.repeat_interleave(kvl, rep) if kvl.ndim == 1 else kvl
 
 
-def _decode_quantize_operands(q, k, v, kv_len):
-    """q whole-tensor int8; k/v int8 over their valid prefix (axis 2)."""
-    return (quantize_tensor(q, bits=8), masked_prefix_quantize(k, kv_len),
-            masked_prefix_quantize(v, kv_len))
-
-
 def _paged_quantize_operands(q, k_pool, v_pool, block_table, kv_len):
     """q whole-tensor int8; pooled k/v per-page int8 over live entries."""
     pv = page_valid_lengths(block_table, kv_len, k_pool.shape[0],
                             k_pool.shape[1])
-    return (quantize_tensor(q, bits=8), masked_page_quantize(k_pool, pv),
-            masked_page_quantize(v_pool, pv))
+    return (quantize_tensor(q, bits=8), page_quantize_tensor(k_pool, pv),
+            page_quantize_tensor(v_pool, pv))
 
 
 def raceit_attention_decode_paged(
@@ -126,8 +213,8 @@ def raceit_attention_decode_paged(
     B, H, Sq, D = q.shape
     n_pages, ps, KV, hd = k_pool.shape
     rep = H // KV
-    qq, (k_codes, k_scale), (v_codes, v_scale) = \
-        _paged_quantize_operands(q, k_pool, v_pool, block_table, kv_len)
+    qq, kq, vq = _paged_quantize_operands(q, k_pool, v_pool, block_table,
+                                          kv_len)
 
     def to_rows(c):
         if rep > 1:
@@ -135,13 +222,12 @@ def raceit_attention_decode_paged(
         return c.transpose(1, 2).reshape(n_pages * H, ps, hd).contiguous()
 
     out32, cmax = acam_attention_codes(
-        qq.codes.reshape(B * H, Sq, D).contiguous(), to_rows(k_codes),
-        to_rows(v_codes), qq.scale * k_scale, mask,
+        qq.codes.reshape(B * H, Sq, D).contiguous(), to_rows(kq.codes),
+        to_rows(vq.codes), scale_product(qq, kq), mask,
         kv_len=expand_row_lens(kv_len, H), mode=softmax_mode,
         block_table=block_table.to(torch.int32).contiguous(), page_size=ps,
         groups_per_slot=H)
-    p_scale = prob_requant_scale(cmax)
-    return (out32.float() * (p_scale * v_scale)).reshape(B, H, Sq, D)
+    return (out32.float() * prob_descale(cmax, vq)).reshape(B, H, Sq, D)
 
 
 def raceit_attention_decode_gqa_paged(
@@ -167,17 +253,16 @@ def raceit_attention_decode_gqa_paged(
     if H % KV:
         raise ValueError(f"n_heads={H} not a multiple of n_kv_heads={KV}")
     rep = H // KV
-    qq, (k_codes, k_scale), (v_codes, v_scale) = \
-        _paged_quantize_operands(q, k_pool, v_pool, block_table, kv_len)
+    qq, kq, vq = _paged_quantize_operands(q, k_pool, v_pool, block_table,
+                                          kv_len)
     to_rows = lambda c: c.transpose(1, 2).reshape(n_pages * KV, ps, hd
                                                   ).contiguous()
     if mask is not None:  # (B, 1, Sk) -> (B, rep, Sk): one per slot, as flat
         mask = mask.expand(B, rep, mask.shape[-1])
     out32, cmax = acam_attention_decode_gqa_codes(
-        qq.codes.reshape(B * KV, rep, D).contiguous(), to_rows(k_codes),
-        to_rows(v_codes), qq.scale * k_scale, expand_row_lens(kv_len, KV),
+        qq.codes.reshape(B * KV, rep, D).contiguous(), to_rows(kq.codes),
+        to_rows(vq.codes), scale_product(qq, kq), expand_row_lens(kv_len, KV),
         mask=mask, mode=softmax_mode,
         block_table=block_table.to(torch.int32).contiguous(), page_size=ps,
         groups_per_slot=KV)
-    p_scale = prob_requant_scale(cmax)
-    return (out32.float() * (p_scale * v_scale)).reshape(B, H, Sq, D)
+    return (out32.float() * prob_descale(cmax, vq)).reshape(B, H, Sq, D)

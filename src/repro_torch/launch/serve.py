@@ -6,11 +6,13 @@
 The port of `repro.launch.serve`: without ``--continuous`` requests are
 served in left-padded buckets of ``--slots`` by `BatchScheduler` over
 `GenerationEngine.generate` (the reference's default); with it, by the
-block-paged continuous batcher. Weights are made from ``--seed`` at the
-configuration's published width unless ``--ckpt`` names a reference
-checkpoint directory; ``--set`` overrides config fields (e.g.
-``n_layers=2`` for a shallow run). Runs on ``--device`` (default ``cuda``;
-with no card it stops rather than fall back to the CPU).
+block-paged continuous batcher; ``--staged-attention`` serves the
+stage-by-stage oracle attention instead of the fused kernels. Weights are
+made from ``--seed`` at the configuration's published width unless
+``--ckpt`` names a reference checkpoint directory; ``--set`` overrides
+config fields (e.g. ``n_layers=2`` for a shallow run). Runs on
+``--device`` (default ``cuda``; with no card it stops rather than fall
+back to the CPU).
 """
 from __future__ import annotations
 
@@ -73,6 +75,10 @@ def main(argv=None):
                     action="store_true", default=None)
     ap.add_argument("--no-prefix-cache", dest="prefix_cache",
                     action="store_false")
+    ap.add_argument("--staged-attention", action="store_true",
+                    help="opt out of the fused-attention serving default "
+                         "(sugar for --exec-plan attention_prefill="
+                         "raceit_staged attention_decode=raceit_staged)")
     ap.add_argument("--exec-plan", nargs="*", default=[],
                     metavar="SLOT=BACKEND")
     ap.add_argument("--set", nargs="*", default=[])
@@ -109,6 +115,7 @@ def main(argv=None):
         params = Model(cfg, device=device).init(gen)
     exec_cfg = ExecConfig.serving(
         mode="raceit" if args.mode.startswith("raceit") else "digital",
+        fused_attention=not args.staged_attention,
         op_overrides=parse_exec_plan(args.exec_plan))
     if args.mode == "raceit_q8":
         params = quantize_model_params(params)

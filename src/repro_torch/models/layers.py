@@ -21,7 +21,7 @@ from typing import Optional
 import torch
 
 from ..configs.base import ExecConfig, ModelConfig
-from ..core.quant import quantize_tensor
+from ..core.quant import quantize_tensor, scale_product
 from ..exec.plan import ExecPlan, as_plan
 
 Params = dict
@@ -199,17 +199,17 @@ def _decode_quantize(q, k, v, kv_len, scale):
     """Fused-decode prolog shared by both decode backends: q (B, 1, H, hd)
     with 1/sqrt(d) folded, whole-tensor int8; the k/v cache buffers
     (B, Smax, KV, hd) int8 once, unrepeated, scales over the valid prefix."""
-    from ..kernels.ops import masked_prefix_quantize
+    from ..kernels.ops import prefix_quantize_tensor
     qq = quantize_tensor(q.float() * scale, bits=8)
-    kq = masked_prefix_quantize(k.float(), kv_len, axis=1)
-    vq = masked_prefix_quantize(v.float(), kv_len, axis=1)
+    kq = prefix_quantize_tensor(k.float(), kv_len, axis=1)
+    vq = prefix_quantize_tensor(v.float(), kv_len, axis=1)
     return qq, kq, vq
 
 
-def _decode_descale(out32, cmax, v_scale, shape):
+def _decode_descale(out32, cmax, vq, shape):
     """Fused-decode epilog: the oracle's PROB requant + V scales."""
-    from ..kernels.ops import prob_requant_scale
-    return (out32.float() * (prob_requant_scale(cmax) * v_scale)).reshape(shape)
+    from ..kernels.ops import prob_descale
+    return (out32.float() * prob_descale(cmax, vq)).reshape(shape)
 
 
 def _raceit_fused_decode(q, k, v, kv_len, scale, plan: ExecPlan,
@@ -229,8 +229,7 @@ def _raceit_fused_decode(q, k, v, kv_len, scale, plan: ExecPlan,
     b, sq, h, hd = q.shape
     smax, kv = k.shape[1], k.shape[2]
     rep = h // kv
-    qq, (k_codes, k_scale), (v_codes, v_scale) = _decode_quantize(
-        q, k, v, kv_len, scale)
+    qq, kq, vq = _decode_quantize(q, k, v, kv_len, scale)
 
     def fold(c):
         if rep > 1:
@@ -246,14 +245,13 @@ def _raceit_fused_decode(q, k, v, kv_len, scale, plan: ExecPlan,
     mode = plan.exec_cfg.softmax_mode
     if sq == 1:
         out32, cmax = acam_attention_decode_codes(
-            qc, fold(k_codes), fold(v_codes), qq.scale * k_scale, kvl,
+            qc, fold(kq.codes), fold(vq.codes), scale_product(qq, kq), kvl,
             mask=mask, mode=mode)
     else:
         out32, cmax = acam_attention_codes(
-            qc, fold(k_codes), fold(v_codes), qq.scale * k_scale, mask,
+            qc, fold(kq.codes), fold(vq.codes), scale_product(qq, kq), mask,
             kv_len=kvl, mode=mode)
-    return _decode_descale(out32, cmax, v_scale, (b, h, sq, hd)
-                           ).transpose(1, 2)
+    return _decode_descale(out32, cmax, vq, (b, h, sq, hd)).transpose(1, 2)
 
 
 def _raceit_gqa_decode(q, k, v, kv_len, scale, plan: ExecPlan,
@@ -271,18 +269,18 @@ def _raceit_gqa_decode(q, k, v, kv_len, scale, plan: ExecPlan,
     if sq > 1:
         return _raceit_fused_decode(q, k, v, kv_len, scale, plan,
                                     pad_valid=pad_valid)
-    qq, (k_codes, k_scale), (v_codes, v_scale) = _decode_quantize(
-        q, k, v, kv_len, scale)
+    qq, kq, vq = _decode_quantize(q, k, v, kv_len, scale)
     to_groups = lambda c: c.transpose(1, 2).reshape(b * kv, smax, hd
                                                     ).contiguous()
     mask = None
     if pad_valid is not None:  # (B, Smax) -> (B, rep, Smax), one row per b
         mask = pad_valid[:, None, :].expand(b, rep, smax)
     out32, cmax = acam_attention_decode_gqa_codes(
-        qq.codes.reshape(b * kv, rep, hd).contiguous(), to_groups(k_codes),
-        to_groups(v_codes), qq.scale * k_scale, expand_row_lens(kv_len, kv),
-        mask=mask, mode=plan.exec_cfg.softmax_mode)
-    return _decode_descale(out32, cmax, v_scale, (b, sq, h, hd))
+        qq.codes.reshape(b * kv, rep, hd).contiguous(), to_groups(kq.codes),
+        to_groups(vq.codes), scale_product(qq, kq),
+        expand_row_lens(kv_len, kv), mask=mask,
+        mode=plan.exec_cfg.softmax_mode)
+    return _decode_descale(out32, cmax, vq, (b, sq, h, hd))
 
 
 def _raceit_paged_decode(q, k_pool, v_pool, kv_len, scale, plan: ExecPlan,
@@ -358,6 +356,31 @@ def _attn_quantize(q, k, v, scale):
     return qq, kq, vq
 
 
+def _raceit_staged_attention(q, k, v, mask, scale, plan: ExecPlan):
+    """Analog-faithful attention, stage by stage (the bit-accurate oracle
+    formulation): quantized matmul-1, div-add mask, ACAM softmax, PROB
+    re-quantization, matmul-2, the data-dependent matmuls through the plan's
+    ``dd_matmul`` slot. Plain PyTorch: the reference runs this path in jnp.
+
+    q: (B, Sq, H, hd) flat heads; k/v: (B, Sk, KV, hd); mask (B, Sq, Sk).
+    """
+    from ..core.ops import LOGIT_FMT
+    from ..core.softmax import acam_softmax
+    qq, kq, vq = _attn_quantize(q, k, v, scale)
+    s32 = plan.dd_matmul(qq.codes.permute(0, 2, 1, 3),      # (B,H,Sq,hd)
+                         kq.codes.permute(0, 2, 3, 1))      # (B,H,hd,Sk)
+    logits = s32.float() * scale_product(qq, kq)
+    logits = torch.where(mask[:, None], logits,
+                         torch.full((), LOGIT_FMT.min_value,
+                                    device=logits.device))
+    probs = acam_softmax(logits, axis=-1, mode=plan.exec_cfg.softmax_mode)
+    pq = quantize_tensor(probs, bits=8)
+    o32 = plan.dd_matmul(pq.codes,                          # (B,H,Sq,Sk)
+                         vq.codes.permute(0, 2, 1, 3))      # (B,H,Sk,hd)
+    out = o32.float() * scale_product(pq, vq)
+    return out.permute(0, 2, 1, 3)  # (B, Sq, H, hd)
+
+
 def _raceit_fused_attention(q, k, v, mask, scale, plan: ExecPlan,
                             causal_offset=None):
     """Prefill attention on the fused kernel: the whole Fig.-12 pipeline,
@@ -365,17 +388,17 @@ def _raceit_fused_attention(q, k, v, mask, scale, plan: ExecPlan,
     in-kernel causal mask; otherwise ``mask`` (B, Sq, Sk) reaches the kernel
     as one mask row per batch row (the reference broadcasts it over heads).
     """
-    from ..kernels.ops import acam_attention_codes, prob_requant_scale
+    from ..kernels.ops import acam_attention_codes, prob_descale
     qq, kq, vq = _attn_quantize(q, k, v, scale)
     b, sq, h, hd = q.shape
     sk = k.shape[1]
     rows = lambda c, n: c.transpose(1, 2).reshape(b * h, n, hd).contiguous()
     out32, cmax = acam_attention_codes(
         rows(qq.codes, sq), rows(kq.codes, sk), rows(vq.codes, sk),
-        qq.scale * kq.scale, None if causal_offset is not None else mask,
+        scale_product(qq, kq), None if causal_offset is not None else mask,
         q_offset=causal_offset if causal_offset is not None else 0,
         causal=causal_offset is not None, mode=plan.exec_cfg.softmax_mode)
-    out = out32.float() * (prob_requant_scale(cmax) * vq.scale)
+    out = out32.float() * prob_descale(cmax, vq)
     return out.reshape(b, h, sq, hd).transpose(1, 2)
 
 

@@ -139,6 +139,30 @@ def test_float_wrappers_within_reference_bound(entry, mode):
     np.testing.assert_allclose(got, want, rtol=0, atol=2.0 ** -8 * live_v)
 
 
+@pytest.mark.parametrize("entry", ["flat", "gqa", "chunk"])
+@pytest.mark.parametrize("mode", MODES)
+def test_float_wrappers_bit_equal(entry, mode):
+    """The float wrappers equal the reference's bit for bit: the logit
+    scale and the descale multiply two quantizer scales as XLA does
+    (`repro_torch.core.quant.scale_product`)."""
+    rng = np.random.default_rng(21 + MODES.index(mode))
+    q, pk, pv, lens, bt, mask = _pool_case(rng, rep=2,
+                                           sq=3 if entry == "chunk" else 1)
+    gqa = entry == "gqa"
+    rf = (R.raceit_attention_decode_gqa_paged if gqa
+          else R.raceit_attention_decode_paged)
+    tf = (T.raceit_attention_decode_gqa_paged if gqa
+          else T.raceit_attention_decode_paged)
+    want = np.asarray(rf(jnp.asarray(q), jnp.asarray(pk), jnp.asarray(pv),
+                         jnp.asarray(lens), jnp.asarray(bt),
+                         mask=None if mask is None else jnp.asarray(mask),
+                         softmax_mode=mode, fold_scale=True))
+    t = torch.from_numpy
+    got = tf(t(q), t(pk), t(pv), t(lens), t(bt),
+             mask=None if mask is None else t(mask), softmax_mode=mode)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_page_quantizers_bitwise():
     rng = np.random.default_rng(5)
     _, pk, _, lens, bt, _ = _pool_case(rng, rep=1)

@@ -16,7 +16,7 @@ and tiny command-r-35b (GQA, RoPE) are carried across as numpy arrays.
   pinned; `BatchScheduler.run_all` gives the
   reference's tokens and counters on a mixed-length trace, and in digital
   mode each request's tokens equal serving it solo.
-* The resolved plan prints the reference's lines for every ported slot.
+* The resolved plan prints the reference's lines for every slot.
 """
 import numpy as np
 import pytest
@@ -197,18 +197,12 @@ def test_bucket_matches_solo_digital(name):
 
 @pytest.mark.parametrize("name", MODELS)
 def test_plan_explain_matches_reference(name):
-    """Line for line on every ported slot; the staged-oracle slots
-    (softmax, dd_matmul) are still the port's stubs."""
+    """Line for line on every slot, the staged oracle's softmax and
+    dd_matmul slots included."""
     ref, port = _engines(name, "raceit_q8")
     rlines = ref.explain_plan().splitlines()
     tlines = port.explain_plan().splitlines()
-    assert len(tlines) == len(rlines)
-    for r, t in zip(rlines, tlines):
-        slot = r.split("->")[0].strip()
-        if slot in ("softmax", "dd_matmul"):
-            assert "-> unported" in t
-        else:
-            assert t == r
+    assert tlines == rlines
     assert any("attention_prefill -> raceit_fused" in t for t in tlines)
 
 

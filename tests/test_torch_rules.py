@@ -32,7 +32,7 @@ def test_port_imports_without_jax_or_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 25, out.stdout
+    assert n_modules >= 43, out.stdout
 
 
 def _no_card():
@@ -60,6 +60,9 @@ def test_entry_points_raise_without_a_card():
         main(["--arch", "gpt2-large", "--continuous"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--arch", "gpt2-large"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--arch", "gpt2-large", "--mode", "raceit_q8",
+              "--staged-attention"])
     from repro_torch.ckpt import load_reference_checkpoint, params_from_numpy
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_numpy({"blocks": {}}, cfg)
