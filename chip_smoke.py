@@ -9,9 +9,13 @@ Phases, in order; any failure raises and the script exits non-zero:
             nvcc per source, all started together, timed.
 3. kernels  each kernel against its plain PyTorch version on the card, at the
             shapes the main paths give it, in the three softmax modes: the
-            paged kernel (pass_a + pass_b), the contiguous two-pass kernel
-            (contiguous_sums + contiguous_probv) and the one-tile kernel
-            (single_tile); out32 and cmax must be equal. Times, all by CUDA
+            paged kernel (paged_sums + paged_probv), the contiguous two-pass
+            kernel (contiguous_sums + contiguous_probv) and the one-tile
+            kernel (single_tile), with paged edge shapes (a zero-length group,
+            lengths ending mid-page, pages of 8, 96, 1056 and 2048 keys, D 36,
+            70 rows, a page whose row sum only the reference's order of its
+            run totals gets right); out32 and cmax must be equal. Times, all
+            by CUDA
             events: the device time of the kernel's launch function and of
             the plain version (`device_ms`: a spin kernel holds the stream
             while the host enqueues the calls, so host gaps do not count),
@@ -75,17 +79,24 @@ Phases, in order; any failure raises and the script exits non-zero:
             torch.profiler (device time by kernel, idle share).
 
 Phase 3 also holds the LUT kernel (int8 and int32 codes), the crossbar MVM
-kernel (exact, and quantizing at adc_bits 8 and 6) and the Fig.-8 softmax
-kernel (pot, pot_fine, uniform) bit for bit against their plain versions at
-phase 9's shapes, with the time of one PyTorch call computing the same
-function where there is one (an index gather for the LUT, torch._int_mm for
-the exact MVM where its shape rules allow).
+kernel (exact, and quantizing at adc_bits 8 and 6; with edge shapes off
+every tile multiple, bk 64 and 100, and K split over blocks) and the Fig.-8
+softmax kernel (pot, pot_fine, uniform) bit for bit against their plain
+versions at phase 9's shapes, with the time of one PyTorch call computing
+the same function where there is one (an index gather for the LUT,
+torch._int_mm for the exact MVM where its shape rules allow). Last in
+phase 3, a split sweep: every split of the pages (paged kernel) and of K
+(MVM kernel) over blocks at the main-path shapes, each split's result equal
+to the plan's, its device time beside the split the plan picks. The build
+phase prints each kernel's registers, static shared memory and spills
+(`nvcc -Xptxas -v`).
 
 The line before the last is one JSON object describing every kernel; the
 last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import re
@@ -129,7 +140,7 @@ def kernel_table(prof) -> list:
 
 
 # the device kernels of each attention kernel, as torch.profiler names them
-KERNEL_NAMES = {"acam_attention_paged": ("pass_a", "pass_b"),
+KERNEL_NAMES = {"acam_attention_paged": ("paged_sums", "paged_probv"),
                 "acam_attention": ("contiguous_sums", "contiguous_probv"),
                 "acam_attention_single": ("single_tile",)}
 KERNEL_SOURCES = {"acam_attention_paged": "acam_attention",
@@ -438,26 +449,86 @@ def report_case(name, r, device_desc):
           f"pipeline ({device_desc})", flush=True)
 
 
-def phase_kernels(device_desc: str) -> list:
+# a page of 2048 keys (64 runs: two `sum_chunks` groups of 32 run totals)
+# of LOGIT codes (i * 37) % 80 - 60 with these (key, code) overrides: its
+# pot_fine exp values added in the reference's order and run total by run
+# total give row sums on two sides of a LOG(S) step, so only the first
+# order gives the plain version's output (tests/test_torch_decomposed.py
+# holds the page against the Pallas kernel)
+ORDER_PAGE = ((0, -45), (26, -54), (46, -21), (67, -128), (147, -128),
+              (227, -128), (307, -128), (387, -128), (467, -128), (547, -128),
+              (627, -128), (707, -128), (787, -128), (867, 3))
+
+
+def order_case():
+    """A pot_fine decode over `ORDER_PAGE`, then the trash page: q . k is
+    each key's first code and s1 = 1/8 makes it the LOGIT code."""
+    c = attention_case("paged edge ps 2048 run order", n_slots=1, gps=1,
+                       sq=1, d=64, page_size=2048, max_pages=2,
+                       mode="pot_fine", lens=[2048])
+    codes = np.arange(2048) * 37 % 80 - 60
+    for i, code in ORDER_PAGE:
+        codes[i] = code
+    c["q"].zero_()
+    c["q"][0, 0, 0] = 1
+    c["k"][int(c["bt"][0, 0]), :, 0] = torch.from_numpy(
+        codes.astype(np.int8)).to(c["k"].device)
+    c["s1"] = torch.tensor(np.float32(0.125), device=c["q"].device)
+    return c
+
+
+def paged_edge_cases() -> list:
+    """Shapes off the paged kernels' tiles: a flat decode with a zero-length
+    group and lengths ending mid-page over more pages than one split; pages
+    of 8 keys with D 36 (4-byte copies, D padded) and 70 masked rows (two
+    row tiles); pages of 96 keys (three runs, key tiles of 32), GQA rows;
+    pages of 1056 keys (33 runs, in two groups) and `order_case`."""
+    return [
+        attention_case("paged edge decode mid-page", n_slots=8, gps=20,
+                       sq=1, d=64, page_size=64, max_pages=16, mode="pot",
+                       lens=[0, 1, 63, 65, 1000, 1024, 130, 511]),
+        attention_case("paged edge ps 8 D 36 70 rows", n_slots=3, gps=4,
+                       sq=70, d=36, page_size=8, max_pages=12, mode="pot",
+                       lens=[0, 17, 93], chunk_mask=True),
+        attention_case("paged edge ps 96 gqa", n_slots=4, gps=8, sq=8,
+                       d=128, page_size=96, max_pages=6, mode="pot",
+                       lens=[576, 0, 97, 300]),
+        attention_case("paged edge ps 1056", n_slots=2, gps=2, sq=1, d=64,
+                       page_size=1056, max_pages=2, mode="pot",
+                       lens=[2112, 1500]),
+        order_case(),
+    ]
+
+
+def paged_main_cases(gen, mode) -> list:
+    """The paged kernel's main-path calls: gpt2-large decode and 64-row
+    chunk (G 160, D 64) and command-r GQA decode (8 rows, D 128), 8 slots of
+    16 pages of 64 keys."""
     slots, mp, ps = 8, 16, 64
+    lens = gen.integers(1, mp * ps + 1, slots).tolist()
+    gqa_lens = gen.integers(1, mp * ps + 1, slots).tolist()
+    gqa_lens[3] = 0  # a zero-length slot
+    chunk_lens = gen.integers(64, mp * ps + 1, slots).tolist()
+    return [
+        attention_case(f"gpt2-large decode {mode}", n_slots=slots, gps=20,
+                       sq=1, d=64, page_size=ps, max_pages=mp, mode=mode,
+                       lens=lens),
+        attention_case(f"gpt2-large chunk {mode}", n_slots=slots, gps=20,
+                       sq=64, d=64, page_size=ps, max_pages=mp, mode=mode,
+                       lens=chunk_lens, chunk_mask=True),
+        attention_case(f"command-r gqa decode {mode}", n_slots=slots,
+                       gps=8, sq=8, d=128, page_size=ps, max_pages=mp,
+                       mode=mode, lens=gqa_lens),
+    ]
+
+
+def phase_kernels(device_desc: str) -> list:
     gen = np.random.default_rng(SEED + 1)
     rows = []
     for mode in ("pot", "pot_fine", "uniform"):
-        lens = gen.integers(1, mp * ps + 1, slots).tolist()
-        gqa_lens = gen.integers(1, mp * ps + 1, slots).tolist()
-        gqa_lens[3] = 0  # a zero-length slot
-        chunk_lens = gen.integers(64, mp * ps + 1, slots).tolist()
-        cases = [
-            attention_case(f"gpt2-large decode {mode}", n_slots=slots, gps=20,
-                           sq=1, d=64, page_size=ps, max_pages=mp, mode=mode,
-                           lens=lens),
-            attention_case(f"gpt2-large chunk {mode}", n_slots=slots, gps=20,
-                           sq=64, d=64, page_size=ps, max_pages=mp, mode=mode,
-                           lens=chunk_lens, chunk_mask=True),
-            attention_case(f"command-r gqa decode {mode}", n_slots=slots,
-                           gps=8, sq=8, d=128, page_size=ps, max_pages=mp,
-                           mode=mode, lens=gqa_lens),
-        ]
+        cases = paged_main_cases(gen, mode)
+        if mode == "pot":
+            cases += paged_edge_cases()
         for c in cases:
             r = check_attention_case(c)
             report_case(c["name"], r, device_desc)
@@ -496,6 +567,11 @@ LUT_SHAPES = (("gpt2-large gelu", "gelu", 512, 5120),
 MVM_SHAPES = (("gpt2-large fc1", 512, 1280, 5120),
               ("gpt2-large fc2", 512, 5120, 1280),
               ("gpt2-large decode fc1", 8, 1280, 5120))
+# shapes off every tile multiple, bk 64 at fc1, bk 100 (a crossbar tile
+# padded to 128 in shared memory); fc2 and the decode shapes split K
+MVM_EDGE = (("edge", 77, 1000, 203, None), ("gpt2-large fc1 bk 64", 512,
+                                             1280, 5120, 64),
+            ("edge bk 100", 40, 700, 96, 100))
 SOFTMAX_SHAPES = (("gpt2-large staged prefill", 20, 512, 512),
                   ("gpt2-large decode at n_ctx", 160, 1, 1024))
 
@@ -588,7 +664,7 @@ def xbar_configs():
                                               adc_bits=6)))
 
 
-def check_mvm_case(x, w, cfg):
+def check_mvm_case(x, w, cfg, bk=None):
     from repro_torch.core.crossbar import adc_step
     from repro_torch.kernels import acam_mvm as M
     m, k = x.shape
@@ -599,10 +675,11 @@ def check_mvm_case(x, w, cfg):
     library = None
     if planes == 1 and m > 16 and k % 8 == 0 and n % 8 == 0:
         library = lambda: torch._int_mm(x, w)
+    bk = bk or cfg.rows
     return check_codes_case(
-        "acam_mvm", lambda: M.acam_mvm(x, w, cfg),
-        lambda: M._launch(x, w, cfg, cfg.rows),
-        lambda: M.acam_mvm_plain(x, w, cfg), bound, library=library)
+        "acam_mvm", lambda: M.acam_mvm(x, w, cfg, bk=bk),
+        lambda: M._launch(x, w, cfg, bk),
+        lambda: M.acam_mvm_plain(x, w, cfg, bk), bound, library=library)
 
 
 def softmax_rows(gen, heads, queries, keys):
@@ -649,11 +726,86 @@ def phase_kernels_new(device_desc: str) -> list:
         for label, cfg in xbar_configs():
             record(f"{name} ({m}, {k}) x ({k}, {n}) {label}",
                    check_mvm_case(x, w, cfg))
+    for name, m, k, n, bk in MVM_EDGE:
+        x = torch.from_numpy(gen.integers(-128, 128, (m, k), dtype=np.int8)
+                             ).to(DEVICE)
+        w = torch.from_numpy(gen.integers(-128, 128, (k, n), dtype=np.int8)
+                             ).to(DEVICE)
+        for label, cfg in xbar_configs():
+            record(f"{name} ({m}, {k}) x ({k}, {n}) {label}",
+                   check_mvm_case(x, w, cfg, bk))
+    # unsliced 8-bit DAC and cells: plane sums past 2^22, the ADC's
+    # conversion path (csrc/acam_mvm.cu adc)
+    from repro_torch.core.crossbar import CrossbarConfig
+    record(f"edge ({m}, {k}) x ({k}, {n}) quantize dac 8 cell 8",
+           check_mvm_case(x, w, CrossbarConfig(adc_mode="quantize",
+                                               dac_bits=8, cell_bits=8), bk))
     for name, heads, queries, keys in SOFTMAX_SHAPES:
         codes = softmax_rows(gen, heads, queries, keys)
         for mode in ("pot", "pot_fine", "uniform"):
             record(f"{name} ({codes.shape[0]}, {keys}) {mode}",
                    check_softmax_case(codes, mode))
+    return rows
+
+
+def phase_split_sweep(device_desc: str) -> list:
+    """Every split of the pages (paged kernel, mode pot) and of K (MVM
+    kernel, exact and adc 8) over blocks at the main-path shapes: each
+    split's result equal to the plan's, its device ms by CUDA events beside
+    the split the plan picks."""
+    from repro_torch.kernels import acam_attention as A
+    from repro_torch.kernels import acam_mvm as M
+    rows = []
+
+    def report(what, unit, pick, times):
+        print(f"[sweep] {what}: ({unit}, device ms) {times}; the plan picks "
+              f"{pick} ({device_desc})", flush=True)
+        rows.append(dict(case=what, unit=unit, picks=pick, ms=times))
+    for c in paged_main_cases(np.random.default_rng(SEED + 1), "pot"):
+        G, sq = c["q"].shape[:2]
+        mp, ps = c["bt"].shape[1], c["page_size"]
+        base = A.paged_plan(G, sq, mp, ps)
+        mask8 = None if c["mask"] is None else c["mask"].to(torch.int8)
+        kv = torch.clamp(c["kv_len"], max=mp * ps)
+        launch = lambda plan: A._launch_paged(
+            c["q"], c["k"], c["v"], c["s1"], mask8, kv, c["mode"], c["bt"],
+            ps, c["gps"], None, plan)
+        want_out, want_cmax = launch(base)
+        times = []
+        for per in sorted({1, 2, 3, 4, 8, mp, base.pages_per_split},
+                          reverse=True):
+            plan = dataclasses.replace(base, splits=-(-mp // per),
+                                       pages_per_split=per)
+            out, cmax = launch(plan)
+            check(torch.equal(out, want_out) and int(cmax) == int(want_cmax),
+                  f"paged {c['name']}: {per} pages per split differ")
+            times.append((per, device_ms(lambda: launch(plan), 20,
+                                         reps=3)[0]))
+        report(f"paged {c['name']}", "pages per split", base.pages_per_split,
+               times)
+    gen = np.random.default_rng(SEED + 7)
+    for name, m, k, n in MVM_SHAPES:
+        x = torch.from_numpy(gen.integers(-128, 128, (m, k), dtype=np.int8)
+                             ).to(DEVICE)
+        w = torch.from_numpy(gen.integers(-128, 128, (k, n), dtype=np.int8)
+                             ).to(DEVICE)
+        for label, cfg in xbar_configs()[:2]:
+            base = M.mvm_plan(m, n, k, cfg.rows, label != "exact")
+            want = M._launch(x, w, cfg, cfg.rows, base)
+            times = []
+            for splits in sorted({1, 2, 4, 7, 10, 14, base.splits}):
+                per = -(-base.n_stages // splits)
+                plan = dataclasses.replace(base, stages_per_split=per,
+                                           splits=-(-base.n_stages // per))
+                if any(t[0] == plan.splits for t in times):
+                    continue
+                check(torch.equal(M._launch(x, w, cfg, cfg.rows, plan), want),
+                      f"mvm {name} {label}: {plan.splits} K splits differ")
+                times.append((plan.splits, device_ms(
+                    lambda: M._launch(x, w, cfg, cfg.rows, plan), 20,
+                    reps=3)[0]))
+            report(f"mvm {name} ({m}, {k}) x ({k}, {n}) {label}", "K splits",
+                   base.splits, times)
     return rows
 
 
@@ -1223,6 +1375,44 @@ def phase_staged(gpt2, device_desc: str) -> dict:
     return res
 
 
+def ptxas_report(log: str) -> list:
+    """Per kernel of an `nvcc -Xptxas -v` log: registers, static shared
+    memory and spill bytes."""
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?(\w+)", line)
+        if m:
+            name = m.group(1)
+            if cur is None or cur["mangled"] != name:
+                short = re.search(r"(mvm_kernel|mvm_wgmma|paged_sums|"
+                                  r"paged_probv|contiguous_sums|"
+                                  r"contiguous_probv|single_tile|"
+                                  r"softmax_rows|lut_kernel)", name)
+                kernel = short.group(1) if short else name
+                targs = re.findall(r"L[ib](\d+)E", name[name.find(kernel):])
+                if targs:  # a template's arguments, e.g. mvm_kernel<4,...>
+                    kernel += "<" + ",".join(targs) + ">"
+                cur = dict(mangled=name, kernel=kernel, registers=None, smem=0,
+                           spill_stores=0, spill_loads=0)
+                rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    for r in rows:
+        r.pop("mangled")
+    return rows
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
@@ -1240,14 +1430,18 @@ def main() -> None:
     build.build_all(libs)
     print(f"[build] {', '.join(libs)}: {time.perf_counter() - t0:.1f} s "
           f"(nvcc sm_90a, in parallel)", flush=True)
-    for lib in libs:
-        for line in build.build_log(lib).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build]   {lib}: {line.strip()}", flush=True)
+    ptxas = {lib: ptxas_report(build.build_log(lib)) for lib in libs}
+    for lib, rows in ptxas.items():
+        for r in rows:
+            print(f"[build] {lib} {r['kernel']}: {r['registers']} registers, "
+                  f"{r['smem']} bytes static shared memory (plus dynamic), "
+                  f"{r['spill_stores']} / {r['spill_loads']} bytes spill "
+                  f"stores / loads", flush=True)
 
     t_start = time.perf_counter()
     kernel_rows = phase_kernels(desc)
     new_rows = phase_kernels_new(desc)
+    sweep_rows = phase_split_sweep(desc)
     main_res, eng = phase_main(desc)
     prof_res = phase_profile(eng, main_res)
     del eng
@@ -1308,6 +1502,7 @@ def main() -> None:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"]})
     print("[record] " + json.dumps({"cases": kernel_rows + new_rows,
+                                    "sweep": sweep_rows, "ptxas": ptxas,
                                     "main": main_res, "profile": prof_res,
                                     "bucketed": bucket_res,
                                     "solo": solo_res,

@@ -8,7 +8,8 @@ the probability scale from. Three layouts of the one TPU function
 CUDA kernel and a plain PyTorch version in the reference's op order:
 
 * block-paged k/v (``block_table`` given): ``csrc/acam_attention.cu``
-  ``pass_a``/``pass_b``, plain `acam_attention_codes_plain`;
+  ``paged_sums``/``paged_probv`` (its pages split over blocks by
+  `paged_plan`), plain `acam_attention_codes_plain`;
 * contiguous k/v (G, Sk, D), two passes over key blocks of ``bk`` keys:
   ``csrc/acam_attention.cu`` ``contiguous_sums``/``contiguous_probv``,
   plain `acam_attention_contiguous_plain`;
@@ -29,6 +30,7 @@ prompt (zero-length groups excepted).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -45,7 +47,7 @@ __all__ = ["acam_attention_codes", "acam_attention_codes_plain",
            "softmax_tables", "requant_scale", "requant_code_table",
            "sum_chunks", "key_block", "one_tile", "FUSED_SOFTMAX_MODES",
            "DEFAULT_BLOCK_Q", "DEFAULT_BLOCK_K", "DEFAULT_BLOCK_G", "launches",
-           "pot_consts"]
+           "pot_consts", "PagedPlan", "paged_plan", "PAGED_ROWS"]
 
 FUSED_SOFTMAX_MODES = ("pot", "pot_fine", "uniform")
 
@@ -237,6 +239,41 @@ def acam_attention_codes_plain(q_codes, k_codes, v_codes, logit_scale,
                            False, page_size)
 
 
+# the paged kernels' split (csrc/acam_attention.cu paged_sums/paged_probv)
+PAGED_ROWS = 64                # query rows per block
+_PAGED_TARGET_BLOCKS = 4 * 132  # blocks that fill the H100's 132 SMs 4 times
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedPlan:
+    """How a paged call is split over blocks: ``units`` row tiles of up to
+    64 query rows per group, each group's pages cut into ``splits`` runs of
+    ``pages_per_split``, every page staged in tiles of ``key_tile`` keys;
+    the LOGIT codes kept for pass B with a page pitch of ``psp`` bytes."""
+    row_tiles: int
+    units: int
+    splits: int
+    pages_per_split: int
+    key_tile: int
+    psp: int
+
+
+def paged_plan(G: int, Sq: int, max_pages: int, page_size: int) -> PagedPlan:
+    """Pages split until the blocks fill the card 4 times over (a
+    heuristic; chip_smoke.py's phase 3 times every split beside it)."""
+    row_tiles = -(-Sq // PAGED_ROWS)
+    units = G * row_tiles
+    want = max(1, min(max_pages, -(-_PAGED_TARGET_BLOCKS // units)))
+    per = -(-max_pages // want)
+    if page_size <= 64:
+        key_tile = page_size
+    else:
+        key_tile = 64 if page_size % 64 == 0 else 32
+    return PagedPlan(row_tiles=row_tiles, units=units,
+                     splits=-(-max_pages // per), pages_per_split=per,
+                     key_tile=key_tile, psp=-(-page_size // 16) * 16)
+
+
 def acam_attention_contiguous_plain(q_codes, k_codes, v_codes, logit_scale,
                                     mask, lens, per_row, mode, cmax_floor,
                                     q_offset, causal):
@@ -295,19 +332,33 @@ def _cmax_cell(cmax_floor, dev):
 
 
 def _launch_paged(q_codes, k_codes, v_codes, logit_scale, mask, kv_len, mode,
-                  block_table, page_size, groups_per_slot, cmax_floor):
+                  block_table, page_size, groups_per_slot, cmax_floor,
+                  plan: PagedPlan | None = None):
+    """Both passes on the current stream; ``plan`` defaults to the call's
+    own (`paged_plan`)."""
     import ctypes
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = _bind("acam_attention", "acam_attention_paged_launch",
-               [I, P, P, P, P, P, P, I, P, P, P, P, P, P, P,
-                I, I, I, I, I, I, F, F, F, F, I, P])
+               [I, P, P, P, P, P, P, I, P, P, P, P, P, P, P, P, P, P,
+                I, I, I, I, I, I, I, I, I, I, F, F, F, F, I, P])
     dev = q_codes.device
     exp_val, log_lut, prob_lut, e_min, step, fs = _device_tables(mode, dev)
     G, Sq, D = q_codes.shape
     max_pages = block_table.shape[1]
+    plan = plan or paged_plan(G, Sq, max_pages, page_size)
+    rows = G * Sq
+    # split calls add into rows that pass A zeroes
     out = torch.empty((G, Sq, D), dtype=torch.int32, device=dev)
-    row_sum = torch.empty((G * Sq,), dtype=torch.float32, device=dev)
-    cmax = _cmax_cell(cmax_floor, dev)
+    page_sum = torch.empty((rows * max_pages,), dtype=torch.float32,
+                           device=dev)
+    page_max = torch.empty((rows * max_pages,), dtype=torch.int32, device=dev)
+    codes = torch.empty((rows * max_pages * plan.psp,), dtype=torch.int8,
+                        device=dev)
+    lsh = torch.empty((rows,), dtype=torch.int32, device=dev)
+    cells = torch.zeros((1 + plan.units,), dtype=torch.int32, device=dev)
+    if cmax_floor is not None:
+        cells[:1].copy_(torch.as_tensor(cmax_floor, dtype=torch.int32,
+                                        device=dev).reshape(1))
     s1 = logit_scale.to(torch.float32).reshape(1).contiguous()
     mask_ptr, mask_div = None, 1
     if mask is not None:
@@ -318,14 +369,16 @@ def _launch_paged(q_codes, k_codes, v_codes, logit_scale, mask, kv_len, mode,
                  v_codes.data_ptr(), block_table.data_ptr(), kv_len.data_ptr(),
                  mask_ptr, mask_div, s1.data_ptr(), exp_val.data_ptr(),
                  log_lut.data_ptr(), prob_lut.data_ptr(), out.data_ptr(),
-                 row_sum.data_ptr(), cmax.data_ptr(), G, Sq, D, page_size,
-                 max_pages, groups_per_slot, *pot_consts(e_min, step), fs,
-                 stream)
+                 page_sum.data_ptr(), page_max.data_ptr(), codes.data_ptr(),
+                 lsh.data_ptr(), cells.data_ptr(), G, Sq, D, page_size,
+                 max_pages, groups_per_slot, plan.splits,
+                 plan.pages_per_split, plan.key_tile, plan.psp,
+                 *pot_consts(e_min, step), fs, stream)
         if err != 0:
             raise RuntimeError(f"acam_attention pass {'AB'[pass_id]} launch "
                                f"failed: cudaError {err}")
         launches["acam_attention_paged"] += 1
-    return out, cmax.reshape(())
+    return out, cells[0]
 
 
 def _contiguous_args(q_codes, logit_scale, mask, q_offset, mode):
