@@ -14,11 +14,14 @@ Phases, in order; any failure raises and the script exits non-zero:
             kernel (single_tile), with paged edge shapes (a zero-length group,
             lengths ending mid-page, pages of 8, 96, 1056 and 2048 keys, D 36,
             70 rows, a page whose row sum only the reference's order of its
-            run totals gets right); out32 and cmax must be equal. Times, all
-            by CUDA
-            events: the device time of the kernel's launch function and of
-            the plain version (`device_ms`: a spin kernel holds the stream
-            while the host enqueues the calls, so host gaps do not count),
+            run totals gets right) and contiguous edge shapes (300, 600 and
+            1100 keys, zero-length groups, fully masked rows, 70 rows, causal
+            at q_offset 9, D 36, cmax floors; the one-tile kernel at 70 rows,
+            zero-length GQA groups and 64 keys); out32 and cmax must be
+            equal. Times, all by CUDA events: the device time of the
+            kernel's launch function and of the plain version
+            (`device_ms`: a spin kernel holds the stream while the host
+            enqueues the calls, so host gaps do not count),
             the wrapper's and the plain version's per-call times
             (back-to-back calls, host work included), and the bound (bytes
             over 3.35 TB/s, int8 operations over 1979 TOP/s). The kernels
@@ -85,11 +88,13 @@ softmax kernel (pot, pot_fine, uniform) bit for bit against their plain
 versions at phase 9's shapes, with the time of one PyTorch call computing
 the same function where there is one (an index gather for the LUT,
 torch._int_mm for the exact MVM where its shape rules allow). Last in
-phase 3, a split sweep: every split of the pages (paged kernel) and of K
-(MVM kernel) over blocks at the main-path shapes, each split's result equal
-to the plan's, its device time beside the split the plan picks. The build
-phase prints each kernel's registers, static shared memory and spills
-(`nvcc -Xptxas -v`).
+phase 3, a split sweep: every split of the pages (paged kernel), of each
+group's keys into spans of runs (contiguous two-pass kernel at the three
+main-path contiguous shapes, and the one-tile kernel at the solo GQA
+decode) and of K (MVM kernel) over blocks at the main-path shapes, each
+split's result equal to the plan's, its device time beside the split the
+plan picks. The build phase prints each kernel's registers, static shared
+memory and spills (`nvcc -Xptxas -v`).
 
 The line before the last is one JSON object describing every kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -309,10 +314,14 @@ def attention_bound_ms(c) -> tuple[float, str]:
 
 
 def contiguous_case(name, *, G, sq, sk, d, mode, kv_len=None, causal=False,
-                    pad=None, heads=1, device="cuda", seed=SEED):
+                    pad=None, heads=1, q_offset=0, lens=None,
+                    masked_rows=None, floor=None, device="cuda", seed=SEED):
     """Int8 operands of one contiguous call at a main-path shape. ``pad``
     (B,) left-pad lengths give one mask row per batch row of ``heads``
-    groups (causal on top when ``causal``); else ``causal`` is in-kernel."""
+    groups (causal on top when ``causal``); else ``causal`` is in-kernel
+    with ``q_offset``. ``lens`` gives a per-group kv_len vector (zeros are
+    zero-length groups), ``masked_rows`` a random mask with those rows
+    masked whole, ``floor`` a cmax floor."""
     gen = np.random.default_rng(seed)
     q = gen.integers(-128, 128, (G, sq, d), dtype=np.int8)
     k = gen.integers(-128, 128, (G, sk, d), dtype=np.int8)
@@ -328,12 +337,24 @@ def contiguous_case(name, *, G, sq, sk, d, mode, kv_len=None, causal=False,
             m = m & (cols <= np.arange(sq)[None, :, None] + (sk - sq))
         mask = t(np.array(m))  # a writable copy of the broadcast
         causal = False
-    lens = np.full(G, sk if kv_len is None else kv_len, np.int32)
+    elif masked_rows is not None:
+        m = gen.random((G, sq, sk)) < 0.6
+        m[:, list(masked_rows)] = False
+        mask = t(m)
+    kv = None
+    if lens is not None:
+        kv = torch.tensor(lens, dtype=torch.int32, device=device)
+        lens = np.minimum(np.asarray(lens, np.int32), sk)
+    else:
+        if kv_len is not None:
+            kv = torch.tensor(kv_len, dtype=torch.int32, device=device)
+        lens = np.full(G, sk if kv_len is None else kv_len, np.int32)
     return dict(name=name, mode=mode, q=t(q), k=t(k), v=t(v),
-                s1=torch.tensor(s1, device=device), mask=mask,
-                kv_len=None if kv_len is None else torch.tensor(
-                    kv_len, dtype=torch.int32, device=device),
-                lens=t(lens), causal=causal, heads=heads)
+                s1=torch.tensor(s1, device=device), mask=mask, kv_len=kv,
+                lens=t(lens), per_row=kv is not None and kv.ndim == 1,
+                causal=causal, q_offset=q_offset, heads=heads,
+                floor=None if floor is None else torch.tensor(
+                    floor, dtype=torch.int32, device=device))
 
 
 def contiguous_bound_ms(c) -> tuple[float, str]:
@@ -354,7 +375,7 @@ def contiguous_bound_ms(c) -> tuple[float, str]:
         m = c["mask"][g // (G // c["mask"].shape[0])] != 0
         pairs = int((m & valid).sum())
     elif c["causal"]:
-        rows = torch.arange(sq, device=lens.device)
+        rows = torch.arange(sq, device=lens.device) + c["q_offset"]
         pairs = int(((kpos[None, :] <= rows[:, None])[None] & valid).sum())
     else:
         pairs = live * sq
@@ -383,6 +404,19 @@ def check_attention_case(c):
                             bound_ms, bound_by)
 
 
+def contiguous_launch(c, plan=None):
+    """The launch function the wrapper would call on ``c``'s operands,
+    with ``plan`` (the call's own by default)."""
+    from repro_torch.kernels import acam_attention as A
+    G, sq, _ = c["q"].shape
+    fn = (A._launch_single if A.one_tile(G, sq, c["k"].shape[1])
+          else A._launch_contiguous)
+    mask8 = None if c["mask"] is None else c["mask"].to(torch.int8)
+    return lambda: fn(c["q"], c["k"], c["v"], c["s1"], mask8, c["lens"],
+                      c["per_row"], c["mode"], c["floor"], c["q_offset"],
+                      c["causal"], plan)
+
+
 def check_contiguous_case(c):
     """The contiguous two-pass or the one-tile kernel against its plain
     version on one case; the wrapper's shape rule picks the kernel."""
@@ -392,19 +426,15 @@ def check_contiguous_case(c):
     args = (c["q"], c["k"], c["v"], c["s1"], c["mask"])
     plain_fn = (A.acam_attention_single_plain if single
                 else A.acam_attention_contiguous_plain)
-    plain = lambda: plain_fn(*args, c["lens"], False, c["mode"], None, 0,
-                             c["causal"])
+    plain = lambda: plain_fn(*args, c["lens"], c["per_row"], c["mode"],
+                             c["floor"], c["q_offset"], c["causal"])
     kernel = lambda: A.acam_attention_codes(
-        *args, kv_len=c["kv_len"], mode=c["mode"], causal=c["causal"])
-    launch_fn = A._launch_single if single else A._launch_contiguous
-    mask8 = None if c["mask"] is None else c["mask"].to(torch.int8)
-    launch = lambda: launch_fn(c["q"], c["k"], c["v"], c["s1"], mask8,
-                               c["lens"], False, c["mode"], None, 0,
-                               c["causal"])
+        *args, kv_len=c["kv_len"], mode=c["mode"], cmax_floor=c["floor"],
+        q_offset=c["q_offset"], causal=c["causal"])
     bound_ms, bound_by = contiguous_bound_ms(c)
     name = "acam_attention_single" if single else "acam_attention"
-    return compare_and_time(name, 1 if single else 2, kernel, launch, plain,
-                            bound_ms, bound_by)
+    return compare_and_time(name, 1 if single else 2, kernel,
+                            contiguous_launch(c), plain, bound_ms, bound_by)
 
 
 def compare_and_time(kernel_name, launches_per_call, kernel, launch, plain,
@@ -522,6 +552,59 @@ def paged_main_cases(gen, mode) -> list:
     ]
 
 
+def contiguous_main_cases(gen, mode) -> list:
+    """The contiguous kernels' main-path calls: gpt2-large bucket decode
+    (G 80, 512 keys, a pad mask per batch row of 20 groups) and prefill
+    (448 rows, causal and pad), command-r prefill (G 64, 256 rows, D 128,
+    causal in-kernel), and the one-tile command-r solo GQA decode."""
+    pads = gen.integers(0, 200, 4)
+    pads[int(gen.integers(0, 4))] = 0  # the bucket's longest prompt
+    return [
+        contiguous_case(f"gpt2-large bucket decode {mode}", G=80, sq=1,
+                        sk=512, d=64, mode=mode, heads=20,
+                        kv_len=int(gen.integers(449, 481)),
+                        pad=np.minimum(pads, 100)),
+        contiguous_case(f"gpt2-large bucket prefill {mode}", G=80,
+                        sq=448, sk=448, d=64, mode=mode, heads=20,
+                        causal=True, pad=pads),
+        contiguous_case(f"command-r prefill {mode}", G=64, sq=256,
+                        sk=256, d=128, mode=mode, causal=True),
+        contiguous_case(f"command-r solo gqa decode {mode}", G=8, sq=8,
+                        sk=512, d=128, mode=mode,
+                        kv_len=int(gen.integers(65, 289))),
+    ]
+
+
+def contiguous_edge_cases() -> list:
+    """Shapes off the contiguous kernels' main path: one key block of 300
+    keys (runs 22 + 32 x 8 + 22) with per-group lengths ending mid-run and
+    zero-length groups; 600 keys (two key blocks, the last padded) causal
+    at q_offset 9 over 70 rows (two row tiles); 1100 keys (three blocks) at
+    D 36 with a mask whose rows 0 and 3 see no key; a cmax floor of 250;
+    and the one-tile kernel with 70 masked rows of 300 keys, zero-length
+    GQA groups, and 64 keys (one padded tile of 128) with a floor of 90."""
+    return [
+        contiguous_case("contiguous edge Sk 300 lens", G=12, sq=1, sk=300,
+                        d=64, mode="pot", lens=[0, 1, 21, 22, 23, 54, 299,
+                                                300, 150, 0, 77, 280]),
+        contiguous_case("contiguous edge Sk 600 causal q_offset 9 70 rows",
+                        G=10, sq=70, sk=600, d=64, mode="pot", causal=True,
+                        q_offset=9),
+        contiguous_case("contiguous edge Sk 1100 masked rows D 36", G=12,
+                        sq=5, sk=1100, d=36, mode="pot_fine",
+                        masked_rows=(0, 3)),
+        contiguous_case("contiguous edge floor 250", G=16, sq=1, sk=448,
+                        d=64, mode="pot", kv_len=300, floor=250),
+        contiguous_case("one-tile edge Sk 300 70 masked rows", G=2, sq=70,
+                        sk=300, d=64, mode="pot", masked_rows=(0, 69)),
+        contiguous_case("one-tile edge gqa zero-length groups", G=8, sq=8,
+                        sk=512, d=128, mode="uniform",
+                        lens=[0, 512, 1, 33, 200, 0, 480, 96]),
+        contiguous_case("one-tile edge Sk 64 floor 90", G=3, sq=1, sk=64,
+                        d=64, mode="pot", floor=90),
+    ]
+
+
 def phase_kernels(device_desc: str) -> list:
     gen = np.random.default_rng(SEED + 1)
     rows = []
@@ -533,22 +616,9 @@ def phase_kernels(device_desc: str) -> list:
             r = check_attention_case(c)
             report_case(c["name"], r, device_desc)
             rows.append(dict(case=c["name"], **r))
-        pads = gen.integers(0, 200, 4)
-        pads[int(gen.integers(0, 4))] = 0  # the bucket's longest prompt
-        contiguous = [
-            contiguous_case(f"gpt2-large bucket decode {mode}", G=80, sq=1,
-                            sk=512, d=64, mode=mode, heads=20,
-                            kv_len=int(gen.integers(449, 481)),
-                            pad=np.minimum(pads, 100)),
-            contiguous_case(f"gpt2-large bucket prefill {mode}", G=80,
-                            sq=448, sk=448, d=64, mode=mode, heads=20,
-                            causal=True, pad=pads),
-            contiguous_case(f"command-r prefill {mode}", G=64, sq=256,
-                            sk=256, d=128, mode=mode, causal=True),
-            contiguous_case(f"command-r solo gqa decode {mode}", G=8, sq=8,
-                            sk=512, d=128, mode=mode,
-                            kv_len=int(gen.integers(65, 289))),
-        ]
+        contiguous = contiguous_main_cases(gen, mode)
+        if mode == "pot":
+            contiguous += contiguous_edge_cases()
         for c in contiguous:
             r = check_contiguous_case(c)
             report_case(c["name"], r, device_desc)
@@ -749,7 +819,8 @@ def phase_kernels_new(device_desc: str) -> list:
 
 
 def phase_split_sweep(device_desc: str) -> list:
-    """Every split of the pages (paged kernel, mode pot) and of K (MVM
+    """Every split of the pages (paged kernel, mode pot), of the keys into
+    spans of runs (contiguous and one-tile kernels, mode pot) and of K (MVM
     kernel, exact and adc 8) over blocks at the main-path shapes: each
     split's result equal to the plan's, its device ms by CUDA events beside
     the split the plan picks."""
@@ -783,6 +854,24 @@ def phase_split_sweep(device_desc: str) -> list:
                                          reps=3)[0]))
         report(f"paged {c['name']}", "pages per split", base.pages_per_split,
                times)
+    for c in contiguous_main_cases(np.random.default_rng(SEED + 2), "pot"):
+        G, sq, _ = c["q"].shape
+        sk = c["k"].shape[1]
+        single = A.one_tile(G, sq, sk)
+        base = (A.single_plan(G, sq, sk) if single
+                else A.contiguous_plan(G, sq, sk, A.key_block(sk)))
+        want_out, want_cmax = contiguous_launch(c, base)()
+        n = base.runs if base.blocks == 1 else base.blocks
+        times = []
+        for per in sorted({1, 2, 3, 4, 8, n, base.per}, reverse=True):
+            plan = dataclasses.replace(base, splits=-(-n // per), per=per)
+            launch = contiguous_launch(c, plan)
+            out, cmax = launch()
+            check(torch.equal(out, want_out) and int(cmax) == int(want_cmax),
+                  f"{c['name']}: {per} runs per span differ")
+            times.append((per, device_ms(launch, 20, reps=3)[0]))
+        report(f"{'one-tile' if single else 'contiguous'} {c['name']}",
+               "runs per span", base.per, times)
     gen = np.random.default_rng(SEED + 7)
     for name, m, k, n in MVM_SHAPES:
         x = torch.from_numpy(gen.integers(-128, 128, (m, k), dtype=np.int8)

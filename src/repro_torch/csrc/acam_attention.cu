@@ -62,226 +62,47 @@
 //   * pass B adds its int32 PROB . V partials with atomicAdd (integer, so
 //     order-free and exact) into rows that pass A's finishing block zeroed;
 //   * the chunk mask is staged per key tile with coalesced copies.
-// The contiguous kernels keep the first design: one block per (group,
-// 16-row tile) walks the keys with plain loads and __dp4a on CUDA cores.
+// The contiguous kernels (contiguous_sums / contiguous_probv) follow the
+// same design over (G, Sk, D) k/v: each group's keys split into spans on
+// run boundaries of its key block (kernels/acam_attention.py
+// contiguous_plan), each span's run totals added in run and block order by
+// the unit's last block; see acam_contiguous.cuh.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <limits.h>
 
 #include "acam_common.cuh"
+#include "acam_contiguous.cuh"
 #include "acam_mma.cuh"
 
 namespace {
 
 using namespace acam;
 
-constexpr int kThreads = 128;
-constexpr int kRowTile = 16;
-constexpr int kSub = 128;  // contiguous keys per K/V tile in shared memory
-
 // ---------------------------------------------------------------------------
 // contiguous layout: k/v (G, Sk, D), key blocks of bk keys
+// (acam_contiguous.cuh)
 // ---------------------------------------------------------------------------
 
-struct CParams {
-  const int8_t* q;            // (G, Sq, D)
-  const int8_t* k;            // (G, Sk, D)
-  const int8_t* v;            // (G, Sk, D)
-  const int* kv_len;          // (G,) valid keys per group, <= Sk
-  const int8_t* mask;         // (G / mask_div, Sq, Sk) or null; 0 = masked key
-  int mask_div;
-  const float* logit_scale;   // () s_q * s_k
-  const int* q_offset;        // () causal offset of row 0
-  const float* exp_val;       // [256] f32
-  const int* log_lut;         // [256]
-  const int* prob_lut;        // [256]
-  int* out;                   // (G, Sq, D) int32
-  float* row_sum;             // (G * Sq) f32 scratch: pass A -> pass B
-  int* cmax;                  // [1] seeded with cmax_floor
-  int G, Sq, Sk, D, bk, causal, per_row;
-  PotConsts pot;
-  int frac_shift;
-};
-
-// a masked key sits at the LOGIT minimum (mask array first, else causal)
-__device__ __forceinline__ bool c_masked(const CParams& p, int g, int row,
-                                         int kpos, int qoff) {
-  if (p.mask != nullptr) {
-    const long long at = ((long long)(g / p.mask_div) * p.Sq + row) * p.Sk
-                         + kpos;
-    return p.mask[at] == 0;
-  }
-  return p.causal && kpos > row + qoff;
-}
-
-__global__ void __launch_bounds__(kThreads) contiguous_sums(CParams p) {
+// Pass A: LOGIT codes, run totals and span maxima of the block's rows and
+// span; the unit's last block finishes the rows. kW warps: 4 for units of
+// up to 16 rows (decode: more blocks resident, one wave), else 8.
+template <int kW>
+__global__ void __launch_bounds__(32 * kW) contiguous_sums(CParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int g = blockIdx.x, r0 = blockIdx.y * kRowTile;
-  const int nr = min(kRowTile, p.Sq - r0);
-  const int D = p.D, d4 = D / 4, ks = d4 + 1, bk = p.bk;
-  const int nch = n_chunks(bk);
-  const int len = p.kv_len[g];
-  const int nblk = (len + bk - 1) / bk;  // blocks past the fill add zeros
-  const float s1 = *p.logit_scale;
-  const int qoff = p.causal ? *p.q_offset : 0;
-
-  float* exp_s = reinterpret_cast<float*>(smem);          // 256
-  int* q_s = reinterpret_cast<int*>(exp_s + 256);         // kRowTile * d4
-  int* k_s = q_s + kRowTile * d4;                         // kSub * ks
-  float* e_s = reinterpret_cast<float*>(k_s + kSub * ks);  // kRowTile * bk
-  float* run_s = e_s + kRowTile * bk;                     // kRowTile * nch
-  float* sum_s = run_s + kRowTile * nch;                  // kRowTile
-  int* xmax_s = reinterpret_cast<int*>(sum_s + kRowTile);  // kRowTile
-  __shared__ int block_cmax;
-
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) exp_s[i] = p.exp_val[i];
-  load_words(q_s, d4, p.q + ((long long)g * p.Sq + r0) * D, nr, d4);
-  if (threadIdx.x < kRowTile) {
-    sum_s[threadIdx.x] = 0.0f;
-    xmax_s[threadIdx.x] = kLogitMin;
-  }
-  if (threadIdx.x == 0) block_cmax = INT_MIN;
-
-  for (int j = 0; j < nblk; ++j) {
-    const int kb0 = j * bk;
-    for (int t0 = 0; t0 < bk; t0 += kSub) {
-      const int nt = min(kSub, bk - t0);
-      const int live = max(0, min(nt, len - (kb0 + t0)));
-      __syncthreads();  // the previous tile's readers are done with k_s
-      load_words(k_s, ks, p.k + ((long long)g * p.Sk + kb0 + t0) * D, live,
-                 d4);
-      __syncthreads();
-      for (int idx = threadIdx.x; idx < nr * nt; idx += blockDim.x) {
-        const int r = idx / nt, c = idx % nt, kpos = kb0 + t0 + c;
-        float e = 0.0f;  // keys past the fill level do not exist
-        if (c < live) {
-          const int x = c_masked(p, g, r0 + r, kpos, qoff)
-                            ? kLogitMin
-                            : logit_code(q_s + r * d4, k_s + c * ks, d4, s1);
-          e = exp_s[x + 128];
-          atomicMax(&xmax_s[r], x);
-        }
-        e_s[r * bk + t0 + c] = e;
-      }
-    }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < nr * nch; idx += blockDim.x) {
-      const int r = idx / nch, c = idx % nch;
-      int a, b;
-      chunk_bounds(bk, c, a, b);
-      const float* er = e_s + r * bk;
-      float s = er[a];
-      for (int t = a + 1; t < b; ++t) s = __fadd_rn(s, er[t]);
-      run_s[idx] = s;
-    }
-    __syncthreads();
-    if (threadIdx.x < nr) {
-      const int r = threadIdx.x;
-      float s = run_s[r * nch];
-      for (int c = 1; c < nch; ++c) s = __fadd_rn(s, run_s[r * nch + c]);
-      sum_s[r] = __fadd_rn(sum_s[r], s);
-    }
-  }
-  __syncthreads();
-
-  if (threadIdx.x < nr) {
-    const int r = threadIdx.x;
-    const float S = sum_s[r];
-    const int L = p.log_lut[pot_encode(S, p.pot)];
-    const int dmax = min(max(xmax_s[r] - L * (1 << p.frac_shift), kLogitMin),
-                         kLogitMax);
-    // a zero-length group of a per-group vector has no keys: zero rows and
-    // no cmax contribution (a scalar length keeps the reference's rule)
-    const int c = (p.per_row && len == 0) ? 0 : p.prob_lut[dmax + 128];
-    p.row_sum[(long long)g * p.Sq + r0 + r] = S;
-    atomicMax(&block_cmax, c);
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) atomicMax(p.cmax, block_cmax);
+  const CSlice s = contiguous_slice(p);
+  const CLayout L = c_layout(p, 0);
+  contiguous_pass_a<false, kW>(p, s, smem, L);
+  if (contiguous_arrive(p, s)) contiguous_finish<kW>(p, s, smem, L);
 }
 
-__global__ void __launch_bounds__(kThreads) contiguous_probv(CParams p) {
+// Pass B: PROB . V of the block's rows and span.
+template <int kW>
+__global__ void __launch_bounds__(32 * kW) contiguous_probv(CParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int g = blockIdx.x, r0 = blockIdx.y * kRowTile;
-  const int nr = min(kRowTile, p.Sq - r0);
-  const int D = p.D, d4 = D / 4, ks = d4 + 1;
-  const int len = p.kv_len[g];
-  const float s1 = *p.logit_scale;
-  const int qoff = p.causal ? *p.q_offset : 0;
-
-  int* rq_s = reinterpret_cast<int*>(smem);              // 256
-  int* lsh_s = rq_s + 256;                               // kRowTile
-  int* q_s = lsh_s + kRowTile;                           // kRowTile * d4
-  int* k_s = q_s + kRowTile * d4;                        // kSub * ks
-  int* pc_s = k_s + kSub * ks;                           // kRowTile * kSub
-  int8_t* v_s = reinterpret_cast<int8_t*>(pc_s + kRowTile * kSub);  // kSub*D
-
-  const int cm = *p.cmax;
-  for (int i = threadIdx.x; i < 256; i += blockDim.x)
-    rq_s[i] = requant_code(p.prob_lut[i], cm);
-  if (threadIdx.x < nr) {
-    const float S = p.row_sum[(long long)g * p.Sq + r0 + threadIdx.x];
-    lsh_s[threadIdx.x] = p.log_lut[pot_encode(S, p.pot)] * (1 << p.frac_shift);
-  }
-  load_words(q_s, d4, p.q + ((long long)g * p.Sq + r0) * D, nr, d4);
-
-  constexpr int kMaxOut = kRowTile * 128 / kThreads;  // D <= 128
-  int acc[kMaxOut];
-#pragma unroll
-  for (int t = 0; t < kMaxOut; ++t) acc[t] = 0;
-
-  // keys past the fill level hold PROB code 0: only live keys are visited
-  for (int t0 = 0; t0 < len; t0 += kSub) {
-    const int nt = min(kSub, len - t0);
-    const long long base = ((long long)g * p.Sk + t0) * D;
-    __syncthreads();  // the previous tile's readers are done
-    load_words(k_s, ks, p.k + base, nt, d4);
-    {
-      const int* src = reinterpret_cast<const int*>(p.v + base);
-      int* dst = reinterpret_cast<int*>(v_s);
-      for (int idx = threadIdx.x; idx < nt * d4; idx += blockDim.x)
-        dst[idx] = src[idx];
-    }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < nr * nt; idx += blockDim.x) {
-      const int r = idx / nt, c = idx % nt, kpos = t0 + c;
-      const int x = c_masked(p, g, r0 + r, kpos, qoff)
-                        ? kLogitMin
-                        : logit_code(q_s + r * d4, k_s + c * ks, d4, s1);
-      const int d = min(max(x - lsh_s[r], kLogitMin), kLogitMax);
-      pc_s[r * kSub + c] = rq_s[d + 128];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int t = 0; t < kMaxOut; ++t) {
-      const int idx = threadIdx.x + t * kThreads;
-      if (idx < nr * D) {
-        const int r = idx / D, d = idx % D;
-        int a = acc[t];
-        for (int c = 0; c < nt; ++c) a += pc_s[r * kSub + c] * (int)v_s[c * D + d];
-        acc[t] = a;
-      }
-    }
-  }
-#pragma unroll
-  for (int t = 0; t < kMaxOut; ++t) {
-    const int idx = threadIdx.x + t * kThreads;
-    if (idx < nr * D) {
-      const int r = idx / D, d = idx % D;
-      p.out[((long long)g * p.Sq + r0 + r) * D + d] = acc[t];
-    }
-  }
-}
-
-size_t smem_sums(int bk, int d4) {
-  return sizeof(int) * (256 + kRowTile * d4 + kSub * (d4 + 1) + kRowTile * bk
-                        + kRowTile * (bk / kRun + 1) + 2 * kRowTile);
-}
-
-size_t smem_probv(int d4) {
-  return sizeof(int) * (256 + kRowTile + kRowTile * d4 + kSub * (d4 + 1)
-                        + kRowTile * kSub) + (size_t)kSub * d4 * 4;
+  const CSlice s = contiguous_slice(p);
+  contiguous_pass_b<false, kW>(p, s, smem, c_layout(p, 1));
 }
 
 // ---------------------------------------------------------------------------
@@ -337,31 +158,6 @@ __device__ __forceinline__ PSlice paged_slice(const PParams& p) {
   return s;
 }
 
-// rows x bytes from src (row stride ss bytes) into shared memory (row
-// stride ds): cp.async in 16- or 4-byte pieces where every address allows,
-// else plain byte copies
-__device__ __forceinline__ void stage_rows(unsigned char* dst, int ds,
-                                           const int8_t* src, long long ss,
-                                           int rows, int bytes) {
-  const long long al = (long long)reinterpret_cast<uintptr_t>(src) | ss |
-                       bytes | ds;
-  if ((al & 15) == 0) {
-    const int n = bytes / 16;
-    for (int c = threadIdx.x; c < rows * n; c += blockDim.x)
-      cp_async16(dst + (c / n) * ds + 16 * (c % n),
-                 src + (c / n) * ss + 16 * (c % n));
-  } else if ((al & 3) == 0) {
-    const int n = bytes / 4;
-    for (int c = threadIdx.x; c < rows * n; c += blockDim.x)
-      cp_async4(dst + (c / n) * ds + 4 * (c % n),
-                src + (c / n) * ss + 4 * (c % n));
-  } else {
-    for (int c = threadIdx.x; c < rows * bytes; c += blockDim.x)
-      dst[(c / bytes) * ds + c % bytes] =
-          (unsigned char)src[(c / bytes) * ss + c % bytes];
-  }
-}
-
 // whether the mask is staged per key tile with 4-byte copies (page size,
 // key tile and mask row all multiples of 4), else read where it is used
 __host__ __device__ __forceinline__ bool mask_tiles(const PParams& p) {
@@ -376,22 +172,6 @@ __device__ __forceinline__ void load_pages(int* pg_s, const PParams& p,
   for (int i = threadIdx.x; i < s.j1 - s.j0; i += blockDim.x)
     pg_s[i] = p.block_table[(long long)s.slot * p.max_pages + s.j0 + i];
   __syncthreads();
-}
-
-// 16-row tiles of a block's rows over its 4 warps: with one tile all four
-// warps share it (each takes every 4th key or output tile), with two each
-// tile gets two warps, with three or four one
-__device__ __forceinline__ int warps_per_row_tile(int nr) {
-  const int nrt = (nr + 15) / 16;
-  return nrt == 1 ? 4 : (nrt == 2 ? 2 : 1);
-}
-
-// acam_common.cuh logit_code from the dot product; the division by 2^-3
-// is the multiply by 8 (both exact, so the same float)
-__device__ __forceinline__ int logit_of(int dot, float s1) {
-  const float logits = __fmul_rn(__int2float_rn(dot), s1);
-  const float x = rintf(__fmul_rn(logits, 8.0f));
-  return __float2int_rn(fminf(fmaxf(x, (float)kLogitMin), (float)kLogitMax));
 }
 
 // Pass A: the LOGIT codes of the block's pages (q . K on the int8 tensor
@@ -454,7 +234,7 @@ __global__ void __launch_bounds__(kPThreads) paged_sums(PParams p) {
     for (int i = tid; i < 256; i += kPThreads) exp_s[i] = p.exp_val[i];
   }
 
-  const int wpr = warps_per_row_tile(s.nr);
+  const int wpr = warps_per_row_tile<4>(s.nr);
   const int rt = warp / wpr, kq = warp % wpr;
   const bool mma_warp = rt * 16 < s.nr;
   const int nk = p.dp / 32;
@@ -672,7 +452,7 @@ __global__ void __launch_bounds__(kPThreads) paged_probv(PParams p) {
     rq_s[i] = requant_code(p.prob_lut[i], cm);
   if (tid < s.nr) lsh_s[tid] = p.lsh[(long long)s.g * p.Sq + s.r0 + tid];
 
-  const int wpr = warps_per_row_tile(s.nr);
+  const int wpr = warps_per_row_tile<4>(s.nr);
   const int rt = warp / wpr, dq = warp % wpr;
   const bool mma_warp = rt * 16 < s.nr;
   const int ndt = (D + 7) / 8;
@@ -826,52 +606,49 @@ extern "C" int acam_attention_paged_launch(
   return (int)cudaGetLastError();
 }
 
-// Launch one pass (0 = sums, 1 = PROB . V) of the contiguous layout on
-// `stream`; returns cudaGetLastError().
+// Launch one pass (0 = A, 1 = B) of the contiguous layout on `stream`;
+// returns the CUDA error code. The split and the scratch come from
+// kernels/acam_attention.py contiguous_plan: blocks (G * ceil(Sq / 64),
+// splits), each taking `per` runs of the one key block or `per` key blocks.
 extern "C" int acam_attention_contiguous_launch(
     int pass, const void* q, const void* k, const void* v, const void* kv_len,
     const void* mask, int mask_div, const void* logit_scale,
-    const void* q_offset, const void* exp_val, const void* log_lut,
-    const void* prob_lut, void* out, void* row_sum, void* cmax, int G, int Sq,
-    int Sk, int D, int bk, int causal, int per_row, float e_min,
+    const void* q_offset, int q_off, const void* exp_val,
+    const void* log_lut, const void* prob_lut, void* out, void* run_tot,
+    void* span_max,
+    void* codes, void* lsh, void* cells, int G, int Sq, int Sk, int D, int bk,
+    int causal, int per_row, int splits, int per, int psp, float e_min,
     float step_scale, float safe_min, float thr, int frac_shift,
     void* stream) {
-  if (D % 4 != 0 || D > 128 || G <= 0 || Sq <= 0 || Sk <= 0 || bk <= 0 ||
-      bk > 512)
-    return (int)cudaErrorInvalidValue;
   CParams p;
-  p.q = static_cast<const int8_t*>(q);
-  p.k = static_cast<const int8_t*>(k);
-  p.v = static_cast<const int8_t*>(v);
-  p.kv_len = static_cast<const int*>(kv_len);
-  p.mask = static_cast<const int8_t*>(mask);
-  p.mask_div = mask_div;
-  p.logit_scale = static_cast<const float*>(logit_scale);
-  p.q_offset = static_cast<const int*>(q_offset);
-  p.exp_val = static_cast<const float*>(exp_val);
-  p.log_lut = static_cast<const int*>(log_lut);
-  p.prob_lut = static_cast<const int*>(prob_lut);
-  p.out = static_cast<int*>(out);
-  p.row_sum = static_cast<float*>(row_sum);
-  p.cmax = static_cast<int*>(cmax);
-  p.G = G; p.Sq = Sq; p.Sk = Sk; p.D = D; p.bk = bk;
-  p.causal = causal; p.per_row = per_row;
-  p.pot = PotConsts{e_min, step_scale, safe_min, thr};
-  p.frac_shift = frac_shift;
-
-  const dim3 grid(G, (Sq + kRowTile - 1) / kRowTile);
-  const int d4 = D / 4;
-  const size_t smem = pass == 0 ? smem_sums(bk, d4) : smem_probv(d4);
-  const void* fn = pass == 0 ? (const void*)contiguous_sums
-                             : (const void*)contiguous_probv;
+  if (codes == nullptr ||
+      !contiguous_params(p, q, k, v, kv_len, mask, mask_div, logit_scale,
+                         q_offset, q_off, exp_val, log_lut, prob_lut, out,
+                         run_tot, span_max, codes, lsh, cells, G, Sq, Sk, D,
+                         bk, causal, per_row, splits, per, psp, e_min,
+                         step_scale, safe_min, thr, frac_shift))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(p.units, splits);
+  const size_t smem = c_layout(p, pass == 0 ? 0 : 1).total;
+  const bool wide = Sq > 16;  // 8 warps a block, else 4
+  const void* fn =
+      pass == 0 ? (wide ? (const void*)contiguous_sums<8>
+                        : (const void*)contiguous_sums<4>)
+                : (wide ? (const void*)contiguous_probv<8>
+                        : (const void*)contiguous_probv<4>);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (pass == 0) {
-    contiguous_sums<<<grid, kThreads, smem, s>>>(p);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int threads = wide ? 256 : 128;
+  if (pass == 0 && wide) {
+    contiguous_sums<8><<<grid, threads, smem, st>>>(p);
+  } else if (pass == 0) {
+    contiguous_sums<4><<<grid, threads, smem, st>>>(p);
+  } else if (wide) {
+    contiguous_probv<8><<<grid, threads, smem, st>>>(p);
   } else {
-    contiguous_probv<<<grid, kThreads, smem, s>>>(p);
+    contiguous_probv<4><<<grid, threads, smem, st>>>(p);
   }
   return (int)cudaGetLastError();
 }

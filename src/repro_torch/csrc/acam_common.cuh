@@ -56,13 +56,12 @@ __device__ __forceinline__ int pot_encode(float S, const PotConsts& c) {
   return S < c.thr ? 0 : __float2int_rn(e) + 1;
 }
 
-// the LOGIT code of one (query, key) pair: matmul-1 + div-add
-__device__ __forceinline__ int logit_code(const int* q_row, const int* k_row,
-                                          int d4, float s1) {
-  int dot = 0;
-  for (int w = 0; w < d4; ++w) dot = __dp4a(q_row[w], k_row[w], dot);
+// the LOGIT code of one (query, key) pair from its int32 dot product:
+// matmul-1 + div-add; the division by 2^-3 is the multiply by 8 (both
+// exact, so the same float)
+__device__ __forceinline__ int logit_of(int dot, float s1) {
   const float logits = __fmul_rn(__int2float_rn(dot), s1);
-  const float x = rintf(__fdiv_rn(logits, 0.125f));
+  const float x = rintf(__fmul_rn(logits, 8.0f));
   return __float2int_rn(fminf(fmaxf(x, (float)kLogitMin), (float)kLogitMax));
 }
 
@@ -76,26 +75,17 @@ __device__ __forceinline__ int requant_code(int prob, int cmax) {
   return __float2int_rn(fminf(fmaxf(c, -128.0f), 127.0f));
 }
 
-// rows x d4 words of int8 codes (4 per word) into shared memory
-__device__ __forceinline__ void load_words(int* dst, int dst_stride,
-                                           const int8_t* src, int rows, int d4) {
-  const int* s = reinterpret_cast<const int*>(src);
-  for (int idx = threadIdx.x; idx < rows * d4; idx += blockDim.x) {
-    const int r = idx / d4, w = idx % d4;
-    dst[r * dst_stride + w] = s[idx];
-  }
-}
-
 // How the reference sums a key block of n keys (sum_chunks in
 // repro_torch/core/quant.py): runs added key by key, the run
 // totals then added in order. Runs of 32; when 32 does not divide n (and
 // n > 32) the first run and the remainder split into two halves.
-__device__ __forceinline__ int n_chunks(int n) {
+__host__ __device__ __forceinline__ int n_chunks(int n) {
   const int m = n / kRun, r = n % kRun;
   return m == 0 ? 1 : (r == 0 ? m : m + 1);
 }
 
-__device__ __forceinline__ void chunk_bounds(int n, int c, int& a, int& b) {
+__host__ __device__ __forceinline__ void chunk_bounds(int n, int c, int& a,
+                                                    int& b) {
   const int m = n / kRun, r = n % kRun;
   if (m == 0) { a = 0; b = n; return; }
   if (r == 0) { a = kRun * c; b = a + kRun; return; }

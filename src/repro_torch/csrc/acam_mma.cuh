@@ -1,8 +1,8 @@
 // Hopper building blocks shared by the crossbar MVM (acam_mvm.cu) and the
-// paged attention kernels (acam_attention.cu): 16-byte asynchronous copies
-// into shared memory, the int8 tensor-core product mma.sync m16n8k32, and
-// the 4 x 4 byte transpose that turns N-contiguous int8 rows into the
-// K-contiguous operand the tensor cores take.
+// attention kernels (acam_attention.cu, acam_attention_single.cu): 16-byte
+// asynchronous copies into shared memory, the int8 tensor-core product
+// mma.sync m16n8k32, and the 4 x 4 byte transpose that turns N-contiguous
+// int8 rows into the K-contiguous operand the tensor cores take.
 //
 // m16n8k32 fragments (g = lane / 4, t = lane % 4), one 32-bit register =
 // 4 consecutive k bytes:
@@ -103,6 +103,40 @@ __device__ __forceinline__ void transpose_tile(unsigned char* dst,
       *reinterpret_cast<unsigned*>(d + j * dst_stride) =
           add4 ? __vadd4(c[j], add4) : c[j];
   }
+}
+
+// rows x bytes from src (row stride ss bytes) into shared memory (row
+// stride ds): cp.async in 16- or 4-byte pieces where every address allows,
+// else plain byte copies
+__device__ __forceinline__ void stage_rows(unsigned char* dst, int ds,
+                                           const int8_t* src, long long ss,
+                                           int rows, int bytes) {
+  const long long al = (long long)reinterpret_cast<uintptr_t>(src) | ss |
+                       bytes | ds;
+  if ((al & 15) == 0) {
+    const int n = bytes / 16;
+    for (int c = threadIdx.x; c < rows * n; c += blockDim.x)
+      cp_async16(dst + (c / n) * ds + 16 * (c % n),
+                 src + (c / n) * ss + 16 * (c % n));
+  } else if ((al & 3) == 0) {
+    const int n = bytes / 4;
+    for (int c = threadIdx.x; c < rows * n; c += blockDim.x)
+      cp_async4(dst + (c / n) * ds + 4 * (c % n),
+                src + (c / n) * ss + 4 * (c % n));
+  } else {
+    for (int c = threadIdx.x; c < rows * bytes; c += blockDim.x)
+      dst[(c / bytes) * ds + c % bytes] =
+          (unsigned char)src[(c / bytes) * ss + c % bytes];
+  }
+}
+
+// 16-row tiles of a block's rows over its kW warps (4 or 8): one tile
+// takes all (each warp takes every kW-th key or output tile), two take
+// half each, three or four a quarter each
+template <int kW>
+__device__ __forceinline__ int warps_per_row_tile(int nr) {
+  const int nrt = (nr + 15) / 16;
+  return kW / (nrt == 1 ? 1 : (nrt == 2 ? 2 : 4));
 }
 
 }  // namespace acam

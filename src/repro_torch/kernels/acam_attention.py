@@ -11,11 +11,13 @@ CUDA kernel and a plain PyTorch version in the reference's op order:
   ``paged_sums``/``paged_probv`` (its pages split over blocks by
   `paged_plan`), plain `acam_attention_codes_plain`;
 * contiguous k/v (G, Sk, D), two passes over key blocks of ``bk`` keys:
-  ``csrc/acam_attention.cu`` ``contiguous_sums``/``contiguous_probv``,
-  plain `acam_attention_contiguous_plain`;
+  ``csrc/acam_attention.cu`` ``contiguous_sums``/``contiguous_probv`` (each
+  group's keys split over blocks by `contiguous_plan`), plain
+  `acam_attention_contiguous_plain`;
 * contiguous k/v that fit one tile (the reference's ``ng == nq == nk == 1``:
   G <= 8, Sq <= 256, Sk <= 512): ``csrc/acam_attention_single.cu``, one
-  launch, plain `acam_attention_single_plain`.
+  cooperative launch split by `single_plan`, plain
+  `acam_attention_single_plain`.
 
 The shape rule alone picks between the last two, as in the reference. The
 wrapper picks by the device of its inputs alone: a CUDA tensor launches the
@@ -47,7 +49,9 @@ __all__ = ["acam_attention_codes", "acam_attention_codes_plain",
            "softmax_tables", "requant_scale", "requant_code_table",
            "sum_chunks", "key_block", "one_tile", "FUSED_SOFTMAX_MODES",
            "DEFAULT_BLOCK_Q", "DEFAULT_BLOCK_K", "DEFAULT_BLOCK_G", "launches",
-           "pot_consts", "PagedPlan", "paged_plan", "PAGED_ROWS"]
+           "pot_consts", "PagedPlan", "paged_plan", "PAGED_ROWS",
+           "ContiguousPlan", "contiguous_plan", "single_plan",
+           "CONTIGUOUS_ROWS"]
 
 FUSED_SOFTMAX_MODES = ("pot", "pot_fine", "uniform")
 
@@ -274,6 +278,71 @@ def paged_plan(G: int, Sq: int, max_pages: int, page_size: int) -> PagedPlan:
                      key_tile=key_tile, psp=-(-page_size // 16) * 16)
 
 
+# the contiguous kernels' split (csrc/acam_contiguous.cuh)
+CONTIGUOUS_ROWS = 64             # query rows per block
+_CONTIGUOUS_TARGET_BLOCKS = 4 * 132  # blocks that fill the 132 SMs 4 times
+_PREFILL_SPAN_RUNS = 8           # runs a span takes past 16 rows a unit
+_SINGLE_BLOCKS = 64              # one-tile CTAs, all co-resident
+
+
+@dataclasses.dataclass(frozen=True)
+class ContiguousPlan:
+    """How a contiguous call is split over blocks: ``units`` row tiles of
+    up to 64 query rows per group; each group's keys cut into ``splits``
+    spans of ``per`` runs of its one key block of ``bk`` keys (the runs of
+    `sum_chunks(bk)`), or of ``per`` whole key blocks when it has
+    ``blocks`` > 1; the LOGIT codes kept for pass B with a row pitch of
+    ``psp`` bytes."""
+    row_tiles: int
+    units: int
+    blocks: int
+    runs: int
+    splits: int
+    per: int
+    psp: int
+
+
+def _plan(Sk: int, bk: int, row_tiles: int, units: int, want: int,
+          per: int | None = None) -> ContiguousPlan:
+    """``want`` spans per unit, as near as whole runs or blocks allow, or
+    spans of ``per`` runs of the one key block."""
+    blocks = -(-Sk // bk)
+    runs = len(sum_chunks(bk))
+    n = runs if blocks == 1 else blocks
+    if not per or blocks > 1:
+        per = -(-n // max(1, min(n, want)))
+    per = min(n, per)
+    return ContiguousPlan(row_tiles=row_tiles, units=units, blocks=blocks,
+                          runs=runs, splits=-(-n // per), per=per,
+                          psp=-(-(blocks * bk) // 16) * 16)
+
+
+def contiguous_plan(G: int, Sq: int, Sk: int, bk: int) -> ContiguousPlan:
+    """Up to 16 rows a unit (decode), spans cut until the blocks fill the
+    card 4 times over; past 16 rows (prefill), spans of 8 runs (256 keys),
+    since pass B's atomic adds grow with rows x D x spans. A heuristic, not
+    the fastest split: chip_smoke.py's phase 3 times every split beside
+    it. A span starts and ends on a run boundary of its key block, or is
+    whole key blocks when a group has several."""
+    row_tiles = -(-Sq // CONTIGUOUS_ROWS)
+    units = G * row_tiles
+    return _plan(Sk, bk, row_tiles, units,
+                 -(-_CONTIGUOUS_TARGET_BLOCKS // units),
+                 _PREFILL_SPAN_RUNS if Sq > 16 else None)
+
+
+def single_plan(G: int, Sq: int, Sk: int) -> ContiguousPlan:
+    """The one-tile kernel's split: spans of runs of the ``Skp`` keys cut
+    until the CTAs reach 64, at most (the cooperative launch needs every
+    CTA resident, and fewer CTAs meet at the grid barrier sooner). A
+    heuristic: at the solo GQA decode, 64 CTAs beat 128 on the card, and
+    chip_smoke.py's phase 3 times every split beside it."""
+    row_tiles = -(-Sq // CONTIGUOUS_ROWS)
+    units = G * row_tiles
+    return _plan(Sk, key_block(Sk), row_tiles, units,
+                 _SINGLE_BLOCKS // units)
+
+
 def acam_attention_contiguous_plain(q_codes, k_codes, v_codes, logit_scale,
                                     mask, lens, per_row, mode, cmax_floor,
                                     q_offset, causal):
@@ -322,13 +391,6 @@ def pot_consts(e_min: float, step: float):
     return (float(_F32(e_min)), float(_F32(1.0 / step)),
             float(_F32(2.0 ** (e_min - 1))),
             float(_F32(2.0 ** (e_min - step / 2))))
-
-
-def _cmax_cell(cmax_floor, dev):
-    if cmax_floor is None:
-        return torch.zeros((1,), dtype=torch.int32, device=dev)
-    return torch.as_tensor(cmax_floor, dtype=torch.int32,
-                           device=dev).reshape(1).clone()
 
 
 def _launch_paged(q_codes, k_codes, v_codes, logit_scale, mask, kv_len, mode,
@@ -383,75 +445,112 @@ def _launch_paged(q_codes, k_codes, v_codes, logit_scale, mask, kv_len, mode,
 
 def _contiguous_args(q_codes, logit_scale, mask, q_offset, mode):
     """The pointer and constant arguments both contiguous launches share,
-    and the small tensors behind them (kept alive by the caller)."""
+    and the small tensors behind them (kept alive by the caller). A Python
+    offset goes by value; a tensor offset by pointer (never copied to the
+    host, which would wait for the stream)."""
     dev = q_codes.device
     exp_val, log_lut, prob_lut, e_min, step, fs = _device_tables(mode, dev)
     s1 = logit_scale.to(torch.float32).reshape(1).contiguous()
-    # a Python offset becomes a fill on the card, never a host-to-device copy
-    # (which would wait for the stream)
-    qoff = (q_offset.to(device=dev, dtype=torch.int32).reshape(1)
-            if isinstance(q_offset, torch.Tensor)
-            else torch.full((1,), int(q_offset), dtype=torch.int32, device=dev))
+    qoff, qoff_ptr, qoff_val = None, None, 0
+    if isinstance(q_offset, torch.Tensor):
+        qoff = q_offset.to(device=dev, dtype=torch.int32).reshape(1)
+        qoff_ptr = qoff.data_ptr()
+    else:
+        qoff_val = int(q_offset)
     mask_ptr, mask_div = None, 1
     if mask is not None:
         mask_ptr, mask_div = mask.data_ptr(), q_codes.shape[0] // mask.shape[0]
-    args = (mask_ptr, mask_div, s1.data_ptr(), qoff.data_ptr(),
+    args = (mask_ptr, mask_div, s1.data_ptr(), qoff_ptr, qoff_val,
             exp_val.data_ptr(), log_lut.data_ptr(), prob_lut.data_ptr())
     return (s1, qoff), args, (*pot_consts(e_min, step), fs)
 
 
+def _contiguous_scratch(G, Sq, D, plan: ContiguousPlan, cmax_floor, dev,
+                        extra_cells=0):
+    """The output (rows pass B adds into are zeroed by pass A) and the
+    scratch both contiguous kernels take: run totals, span maxima, LOG(S)
+    shifts, and the cells (cmax seeded with the floor, arrival counters)."""
+    rows = G * Sq
+    out = torch.empty((G, Sq, D), dtype=torch.int32, device=dev)
+    run_tot = torch.empty((rows * plan.blocks * plan.runs,),
+                          dtype=torch.float32, device=dev)
+    span_max = torch.empty((rows * plan.splits,), dtype=torch.int32,
+                           device=dev)
+    lsh = torch.empty((rows,), dtype=torch.int32, device=dev)
+    cells = torch.zeros((1 + plan.units + extra_cells,), dtype=torch.int32,
+                        device=dev)
+    if cmax_floor is not None:
+        cells[:1].copy_(torch.as_tensor(cmax_floor, dtype=torch.int32,
+                                        device=dev).reshape(1))
+    return out, run_tot, span_max, lsh, cells
+
+
 def _launch_contiguous(q_codes, k_codes, v_codes, logit_scale, mask, lens,
-                       per_row, mode, cmax_floor, q_offset, causal):
+                       per_row, mode, cmax_floor, q_offset, causal,
+                       plan: ContiguousPlan | None = None):
+    """Both passes on the current stream; ``plan`` defaults to the call's
+    own (`contiguous_plan`)."""
     import ctypes
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = _bind("acam_attention", "acam_attention_contiguous_launch",
-               [I, P, P, P, P, P, I, P, P, P, P, P, P, P, P,
-                I, I, I, I, I, I, I, F, F, F, F, I, P])
+               [I, P, P, P, P, P, I, P, P, I, P, P, P, P, P, P, P, P, P,
+                I, I, I, I, I, I, I, I, I, I, F, F, F, F, I, P])
     dev = q_codes.device
     G, Sq, D = q_codes.shape
     Sk = k_codes.shape[1]
+    bk = key_block(Sk)
+    plan = plan or contiguous_plan(G, Sq, Sk, bk)
     _alive, args, consts = _contiguous_args(q_codes, logit_scale, mask,
                                             q_offset, mode)
-    out = torch.empty((G, Sq, D), dtype=torch.int32, device=dev)
-    row_sum = torch.empty((G * Sq,), dtype=torch.float32, device=dev)
-    cmax = _cmax_cell(cmax_floor, dev)
+    out, run_tot, span_max, lsh, cells = _contiguous_scratch(
+        G, Sq, D, plan, cmax_floor, dev)
+    codes = torch.empty((G * Sq * plan.psp,), dtype=torch.int8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     for pass_id in (0, 1):
         err = fn(pass_id, q_codes.data_ptr(), k_codes.data_ptr(),
                  v_codes.data_ptr(), lens.data_ptr(), *args, out.data_ptr(),
-                 row_sum.data_ptr(), cmax.data_ptr(), G, Sq, Sk, D,
-                 key_block(Sk), int(causal), int(per_row), *consts, stream)
+                 run_tot.data_ptr(), span_max.data_ptr(), codes.data_ptr(),
+                 lsh.data_ptr(), cells.data_ptr(), G, Sq, Sk, D, bk,
+                 int(causal), int(per_row), plan.splits, plan.per, plan.psp,
+                 *consts, stream)
         if err != 0:
             raise RuntimeError(f"acam_attention contiguous pass "
                                f"{'AB'[pass_id]} launch failed: cudaError "
                                f"{err}")
         launches["acam_attention"] += 1
-    return out, cmax.reshape(())
+    return out, cells[0]
 
 
 def _launch_single(q_codes, k_codes, v_codes, logit_scale, mask, lens,
-                   per_row, mode, cmax_floor, q_offset, causal):
+                   per_row, mode, cmax_floor, q_offset, causal,
+                   plan: ContiguousPlan | None = None):
+    """One cooperative launch on the current stream; ``plan`` defaults to
+    the call's own (`single_plan`)."""
     import ctypes
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = _bind("acam_attention_single", "acam_attention_single_launch",
-               [P, P, P, P, P, I, P, P, P, P, P, P, P,
-                I, I, I, I, I, I, I, F, F, F, F, I, P])
+               [P, P, P, P, P, I, P, P, I, P, P, P, P, P, P, P, P,
+                I, I, I, I, I, I, I, I, I, F, F, F, F, I, P])
     dev = q_codes.device
     G, Sq, D = q_codes.shape
     Sk = k_codes.shape[1]
+    plan = plan or single_plan(G, Sq, Sk)
     _alive, args, consts = _contiguous_args(q_codes, logit_scale, mask,
                                             q_offset, mode)
-    out = torch.empty((G, Sq, D), dtype=torch.int32, device=dev)
-    cmax = _cmax_cell(cmax_floor, dev)
+    # one more cell: the grid-wide barrier
+    out, run_tot, span_max, lsh, cells = _contiguous_scratch(
+        G, Sq, D, plan, cmax_floor, dev, extra_cells=1)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(q_codes.data_ptr(), k_codes.data_ptr(), v_codes.data_ptr(),
-             lens.data_ptr(), *args, out.data_ptr(), cmax.data_ptr(), G, Sq,
-             Sk, D, key_block(Sk), int(causal), int(per_row), *consts, stream)
+             lens.data_ptr(), *args, out.data_ptr(), run_tot.data_ptr(),
+             span_max.data_ptr(), lsh.data_ptr(), cells.data_ptr(), G, Sq,
+             Sk, D, key_block(Sk), int(causal), int(per_row), plan.splits,
+             plan.per, *consts, stream)
     if err != 0:
         raise RuntimeError(f"acam_attention_single launch failed: cudaError "
                            f"{err}")
     launches["acam_attention_single"] += 1
-    return out, cmax.reshape(())
+    return out, cells[0]
 
 
 def _check_operands(named, dev):
