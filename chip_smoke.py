@@ -80,6 +80,29 @@ Phases, in order; any failure raises and the script exits non-zero:
             gated: the fused kernel's contract with the staged oracle is at
             most 1 PROB ulp), and the bucket served again under
             torch.profiler (device time by kernel, idle share).
+11. pool    olmo-1b at its published width (16 layers, d 2048, 16 heads of
+            128, d_ff 8192, vocab 50304, non-parametric LayerNorm, tied
+            embeddings), resident int8 from a seed, served by the
+            contiguous slot pool (ContinuousBatcher(paged=False,
+            prefill_len=512), 8 slots, max_len 1024) on phase 4's trace:
+            tokens/s, prefill and decode ms, peak memory, the contiguous
+            launch count (2 x 16 x (prefills + decode steps)) and the trace
+            again under torch.profiler. Then: the kernels against their
+            plain versions on a 4-layer pool (same tokens); the same float
+            weights in digital mode, where every request's pool tokens must
+            be its solo `generate` tokens (parting only at a near tie of
+            the solo logits, < 1e-3: batch-8 and batch-1 float sums);
+            raceit_q8 requests against their solo runs, counted, not held
+            (whole-tensor quantizer scales couple the slots).
+12. gqa-paged  starcoder2-15b (GQA 48:4, qkv biases) at its published width
+            cut to 8 of its 40 layers (float32 init of 40 is about 62 GB),
+            resident int8, through the paged batcher: 8 requests of 64..256
+            tokens, 16 new; the paged launch count; the kernel against its
+            plain version on a 2-layer run.
+
+Phase 9 also drives the float attention wrappers with the reference's
+default fold_scale=False at D 128 (the kernels divide by sqrt(d)), with
+their launch counts.
 
 Phase 3 also holds the LUT kernel (int8 and int32 codes), the crossbar MVM
 kernel (exact, and quantizing at adc_bits 8 and 6; with edge shapes off
@@ -93,11 +116,24 @@ group's keys into spans of runs (contiguous two-pass kernel at the three
 main-path contiguous shapes, and the one-tile kernel at the solo GQA
 decode) and of K (MVM kernel) over blocks at the main-path shapes, each
 split's result equal to the plan's, its device time beside the split the
-plan picks. The build phase prints each kernel's registers, static shared
-memory and spills (`nvcc -Xptxas -v`).
+plan picks. Phase 3 also holds the division by sqrt(d) inside the kernels
+(D 32 and 128, every mode, paged decode and chunk, contiguous decode with
+per-group lengths, causal prefill at a q_offset, masked prefill, one tile),
+logits an ulp from a LOGIT rounding step where dividing and multiplying by
+the reciprocal part, and head dims 36 and 256. The build phase prints each
+kernel's registers, static shared memory and spills (`nvcc -Xptxas -v`).
 
 The line before the last is one JSON object describing every kernel; the
 last line is {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --headline [ROOT]
+
+times the attention kernels' main-path cases of phase 3 in mode pot (the
+minimum of 3 rounds of `device_ms`) in the tree at ROOT (default: this
+checkout), with its own kernels and case builders, and where that tree
+takes ``scale_by_sqrt_d`` the D 128 cases again divided by sqrt(d) in the
+kernel. Two commits compare in one call: parent, change, change, parent
+(the parent unpacked with `git archive` into a directory .gitignore lists).
 """
 from __future__ import annotations
 
@@ -269,8 +305,10 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 # ----------------------------------------------------------------- phase 3
 
 def attention_case(name, *, n_slots, gps, sq, d, page_size, max_pages, mode,
-                   lens, chunk_mask=False, device="cuda", seed=SEED):
-    """Int8 operands of one paged attention call at a main-path shape."""
+                   lens, chunk_mask=False, sqrt_d=None, device="cuda",
+                   seed=SEED):
+    """Int8 operands of one paged attention call at a main-path shape;
+    ``sqrt_d`` is the call's ``scale_by_sqrt_d`` (None: folded)."""
     gen = np.random.default_rng(seed)
     n_pages = 1 + n_slots * max_pages
     G = n_slots * gps
@@ -295,7 +333,8 @@ def attention_case(name, *, n_slots, gps, sq, d, page_size, max_pages, mode,
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     return dict(name=name, mode=mode, q=t(q), k=t(k), v=t(v),
                 s1=torch.tensor(s1, device=device), mask=mask, kv_len=t(kv),
-                bt=t(bt), page_size=page_size, gps=gps, lens=list(lens))
+                bt=t(bt), page_size=page_size, gps=gps, lens=list(lens),
+                sqrt_d=sqrt_d)
 
 
 def attention_bound_ms(c) -> tuple[float, str]:
@@ -315,13 +354,15 @@ def attention_bound_ms(c) -> tuple[float, str]:
 
 def contiguous_case(name, *, G, sq, sk, d, mode, kv_len=None, causal=False,
                     pad=None, heads=1, q_offset=0, lens=None,
-                    masked_rows=None, floor=None, device="cuda", seed=SEED):
+                    masked_rows=None, floor=None, sqrt_d=None, device="cuda",
+                    seed=SEED):
     """Int8 operands of one contiguous call at a main-path shape. ``pad``
     (B,) left-pad lengths give one mask row per batch row of ``heads``
     groups (causal on top when ``causal``); else ``causal`` is in-kernel
     with ``q_offset``. ``lens`` gives a per-group kv_len vector (zeros are
     zero-length groups), ``masked_rows`` a random mask with those rows
-    masked whole, ``floor`` a cmax floor."""
+    masked whole, ``floor`` a cmax floor, ``sqrt_d`` the call's
+    ``scale_by_sqrt_d``."""
     gen = np.random.default_rng(seed)
     q = gen.integers(-128, 128, (G, sq, d), dtype=np.int8)
     k = gen.integers(-128, 128, (G, sk, d), dtype=np.int8)
@@ -354,7 +395,7 @@ def contiguous_case(name, *, G, sq, sk, d, mode, kv_len=None, causal=False,
                 lens=t(lens), per_row=kv is not None and kv.ndim == 1,
                 causal=causal, q_offset=q_offset, heads=heads,
                 floor=None if floor is None else torch.tensor(
-                    floor, dtype=torch.int32, device=device))
+                    floor, dtype=torch.int32, device=device), sqrt_d=sqrt_d)
 
 
 def contiguous_bound_ms(c) -> tuple[float, str]:
@@ -385,20 +426,30 @@ def contiguous_bound_ms(c) -> tuple[float, str]:
             else "operations")
 
 
+def sqrt_d_args(c):
+    """The logit scale and ``rsd`` the wrapper hands its kernel and plain
+    version for ``c["sqrt_d"]`` (`sqrt_d_rule`)."""
+    from repro_torch.kernels import acam_attention as A
+    return A.sqrt_d_rule(c["s1"], c["sqrt_d"])
+
+
 def check_attention_case(c):
     """The paged kernel against its plain version on one case."""
     from repro_torch.kernels import acam_attention as A
-    args = (c["q"], c["k"], c["v"], c["s1"], c["mask"])
+    s1, rsd = sqrt_d_args(c)
+    args = (c["q"], c["k"], c["v"], s1, c["mask"])
     kw = dict(kv_len=c["kv_len"], mode=c["mode"], block_table=c["bt"],
               page_size=c["page_size"], groups_per_slot=c["gps"])
     kv = torch.clamp(c["kv_len"], max=c["bt"].shape[1] * c["page_size"])
     plain = lambda: A.acam_attention_codes_plain(
-        *args, kv, c["mode"], c["bt"], c["page_size"], c["gps"])
-    kernel = lambda: A.acam_attention_codes(*args, **kw)
+        *args, kv, c["mode"], c["bt"], c["page_size"], c["gps"], rsd=rsd)
+    kernel = lambda: A.acam_attention_codes(
+        c["q"], c["k"], c["v"], c["s1"], c["mask"],
+        scale_by_sqrt_d=c["sqrt_d"], **kw)
     mask8 = None if c["mask"] is None else c["mask"].to(torch.int8)
-    launch = lambda: A._launch_paged(
-        c["q"], c["k"], c["v"], c["s1"], mask8, kv, c["mode"], c["bt"],
-        c["page_size"], c["gps"], None)
+    launch = lambda: A._padded_to_4(A._launch_paged, 3)(
+        c["q"], c["k"], c["v"], s1, mask8, kv, c["mode"], c["bt"],
+        c["page_size"], c["gps"], None, rsd=rsd)
     bound_ms, bound_by = attention_bound_ms(c)
     return compare_and_time("acam_attention_paged", 2, kernel, launch, plain,
                             bound_ms, bound_by)
@@ -412,9 +463,11 @@ def contiguous_launch(c, plan=None):
     fn = (A._launch_single if A.one_tile(G, sq, c["k"].shape[1])
           else A._launch_contiguous)
     mask8 = None if c["mask"] is None else c["mask"].to(torch.int8)
-    return lambda: fn(c["q"], c["k"], c["v"], c["s1"], mask8, c["lens"],
+    s1, rsd = sqrt_d_args(c)
+    fn = A._padded_to_4(fn, 3)
+    return lambda: fn(c["q"], c["k"], c["v"], s1, mask8, c["lens"],
                       c["per_row"], c["mode"], c["floor"], c["q_offset"],
-                      c["causal"], plan)
+                      c["causal"], plan, rsd=rsd)
 
 
 def check_contiguous_case(c):
@@ -423,14 +476,16 @@ def check_contiguous_case(c):
     from repro_torch.kernels import acam_attention as A
     G, sq, _ = c["q"].shape
     single = A.one_tile(G, sq, c["k"].shape[1])
-    args = (c["q"], c["k"], c["v"], c["s1"], c["mask"])
+    s1, rsd = sqrt_d_args(c)
     plain_fn = (A.acam_attention_single_plain if single
                 else A.acam_attention_contiguous_plain)
-    plain = lambda: plain_fn(*args, c["lens"], c["per_row"], c["mode"],
-                             c["floor"], c["q_offset"], c["causal"])
+    plain = lambda: plain_fn(c["q"], c["k"], c["v"], s1, c["mask"],
+                             c["lens"], c["per_row"], c["mode"], c["floor"],
+                             c["q_offset"], c["causal"], rsd=rsd)
     kernel = lambda: A.acam_attention_codes(
-        *args, kv_len=c["kv_len"], mode=c["mode"], cmax_floor=c["floor"],
-        q_offset=c["q_offset"], causal=c["causal"])
+        c["q"], c["k"], c["v"], c["s1"], c["mask"], kv_len=c["kv_len"],
+        mode=c["mode"], cmax_floor=c["floor"], q_offset=c["q_offset"],
+        causal=c["causal"], scale_by_sqrt_d=c["sqrt_d"])
     bound_ms, bound_by = contiguous_bound_ms(c)
     name = "acam_attention_single" if single else "acam_attention"
     return compare_and_time(name, 1 if single else 2, kernel,
@@ -605,9 +660,142 @@ def contiguous_edge_cases() -> list:
     ]
 
 
+def sqrt_d_cases(gen, d, mode) -> list:
+    """The in-kernel division by sqrt(d) (``scale_by_sqrt_d=d``, sqrt(d)
+    not a power of two) in every layout: paged decode and 64-row chunk (8
+    slots x 16 heads, 16 pages of 64 keys), contiguous decode with
+    per-group lengths (olmo-1b's slot pool: 8 slots x 16 heads of 1024
+    keys), causal prefill at q_offset 536 over 600 keys, masked prefill
+    with two rows masked whole, and the one-tile kernel."""
+    slots, mp, ps = 8, 16, 64
+    lens = gen.integers(1, mp * ps + 1, slots).tolist()
+    chunk_lens = gen.integers(64, mp * ps + 1, slots).tolist()
+    glens = gen.integers(0, 1025, 128).tolist()
+    glens[5] = 0
+    tag = f"sqrt-d D {d} {mode}"
+    return [
+        attention_case(f"paged decode {tag}", n_slots=slots, gps=16, sq=1,
+                       d=d, page_size=ps, max_pages=mp, mode=mode,
+                       lens=lens, sqrt_d=d),
+        attention_case(f"paged chunk {tag}", n_slots=slots, gps=16, sq=64,
+                       d=d, page_size=ps, max_pages=mp, mode=mode,
+                       lens=chunk_lens, chunk_mask=True, sqrt_d=d),
+        contiguous_case(f"contiguous decode lens {tag}", G=128, sq=1,
+                        sk=1024, d=d, mode=mode, lens=glens, sqrt_d=d),
+        contiguous_case(f"causal prefill q_offset 536 {tag}", G=16, sq=64,
+                        sk=600, d=d, mode=mode, causal=True, q_offset=536,
+                        sqrt_d=d),
+        contiguous_case(f"masked prefill {tag}", G=16, sq=96, sk=512, d=d,
+                        mode=mode, masked_rows=(0, 5), sqrt_d=d),
+        contiguous_case(f"one-tile {tag}", G=8, sq=8, sk=300, d=d,
+                        mode=mode, lens=[300, 0, 1, 77, 299, 150, 32, 64],
+                        sqrt_d=d),
+    ]
+
+
+def boundary_s1(d, r0, n):
+    """An s1 at which ``r0 * s1`` then ``/ sqrt(d)`` and ``* f32(1/sqrt(d))``
+    round to different LOGIT codes at half step ``n + 0.5`` (as
+    tests/test_torch_sqrt_d.py builds its sweep), or None."""
+    f32 = np.float32
+    sd = np.sqrt(f32(d), dtype=f32)
+    s = f32((n + 0.5) / 8 * float(sd) / r0)
+    for k in range(-8, 9):
+        t = s
+        for _ in range(abs(k)):
+            t = np.nextafter(t, f32(np.inf) if k > 0 else f32(-np.inf))
+        x = f32(f32(r0) * t)
+        if np.round(f32(x / sd) * f32(8)) != np.round(
+                f32(x * (f32(1) / sd)) * f32(8)):
+            return t
+    return None
+
+
+def boundary_cases() -> list:
+    """Logits an ulp from a LOGIT half step, where dividing by sqrt(d) and
+    multiplying by its reciprocal round apart: every key of a group at one
+    dot product r0 = a * b (half the keys elsewhere), s1 from
+    `boundary_s1`; one-tile (4 groups of 40 keys), contiguous (10 groups of
+    64 keys) and paged (10 slots of two 32-key pages), D 32 and 128."""
+    gen = np.random.default_rng(SEED + 11)
+    out = []
+    for d in (32, 128):
+        for layout in ("one-tile", "contiguous", "paged"):
+            while True:
+                a, b = (int(x) for x in gen.integers(20, 128, 2))
+                s1 = boundary_s1(d, a * b, int(gen.integers(-120, 120)))
+                if s1 is not None:
+                    break
+            G, sk = (4, 40) if layout == "one-tile" else (10, 64)
+            name = f"boundary {layout} sqrt-d D {d}"
+            if layout == "paged":
+                c = attention_case(name, n_slots=G, gps=1, sq=2, d=d,
+                                   page_size=32, max_pages=2, mode="pot",
+                                   lens=[sk] * G, sqrt_d=d)
+            else:
+                c = contiguous_case(name, G=G, sq=2, sk=sk, d=d, mode="pot",
+                                    sqrt_d=d)
+            keys = np.zeros((G, sk), np.int8)
+            keys[:, :] = b
+            keys[:, sk // 2:] = gen.integers(-128, 128, (G, sk - sk // 2))
+            c["q"].zero_()
+            c["q"][:, :, 0] = a
+            if layout == "paged":  # the slots' pages, in table order
+                k = c["k"]
+                k.zero_()
+                bt = c["bt"].long().cpu().numpy()
+                for g in range(G):
+                    for j in range(2):
+                        k[int(bt[g, j]), :, 0] = torch.from_numpy(
+                            keys[g, 32 * j: 32 * (j + 1)].copy())
+            else:
+                c["k"].zero_()
+                c["k"][:, :, 0] = torch.from_numpy(keys)
+            c["s1"] = torch.tensor(s1, device=c["q"].device)
+            out.append(c)
+    return out
+
+
+def wide_head_cases() -> list:
+    """Head dims at the CUDA kernels' limit: D 256 (the paged chunk takes
+    two PROB . V sweeps, a warp holding a row tile alone) and D 36 with the
+    division by sqrt(36) (q, k and v padded to a multiple of 4)."""
+    return [
+        attention_case("paged edge D 256 chunk 64 rows", n_slots=4, gps=8,
+                       sq=64, d=256, page_size=64, max_pages=8, mode="pot",
+                       lens=[512, 65, 300, 0], chunk_mask=True),
+        attention_case("paged edge D 256 gqa decode", n_slots=8, gps=4,
+                       sq=2, d=256, page_size=64, max_pages=16, mode="pot",
+                       lens=[1024, 1, 700, 64, 0, 333, 900, 128]),
+        contiguous_case("contiguous edge D 256 causal 70 rows", G=8, sq=70,
+                        sk=600, d=256, mode="pot_fine", causal=True,
+                        q_offset=530),
+        contiguous_case("contiguous edge D 256 decode lens", G=32, sq=1,
+                        sk=1024, d=256, mode="pot",
+                        lens=list(range(0, 1024, 32))),
+        contiguous_case("one-tile edge D 256", G=8, sq=8, sk=512, d=256,
+                        mode="uniform", kv_len=400),
+        contiguous_case("contiguous edge D 36 sqrt-d", G=12, sq=5, sk=700,
+                        d=36, mode="pot", masked_rows=(1,), sqrt_d=36),
+        attention_case("paged edge D 36 sqrt-d", n_slots=3, gps=4, sq=1,
+                       d=36, page_size=32, max_pages=8, mode="pot",
+                       lens=[0, 17, 250], sqrt_d=36),
+    ]
+
+
 def phase_kernels(device_desc: str) -> list:
     gen = np.random.default_rng(SEED + 1)
     rows = []
+    extra = []
+    for d in (32, 128):
+        for mode in ("pot", "pot_fine", "uniform"):
+            extra += sqrt_d_cases(gen, d, mode)
+    extra += boundary_cases() + wide_head_cases()
+    for c in extra:
+        r = (check_attention_case(c) if "bt" in c
+             else check_contiguous_case(c))
+        report_case(c["name"], r, device_desc)
+        rows.append(dict(case=c["name"], **r))
     for mode in ("pot", "pot_fine", "uniform"):
         cases = paged_main_cases(gen, mode)
         if mode == "pot":
@@ -1392,6 +1580,68 @@ def phase_kernel_api(device_desc: str) -> dict:
     return dict(seconds=secs, launches=launches)
 
 
+def phase_sqrt_d_api(device_desc: str) -> dict:
+    """The float attention wrappers with the reference's default
+    ``fold_scale=False`` (the kernels divide by sqrt(128)) at olmo-1b's
+    head dim on the card: a causal 512-token prefill of 16 heads, a slot
+    pool decode (8 slots x 16 heads of 1024 keys), a GQA decode of 48
+    query heads on 4 KV heads of 512 keys (the one-tile kernel) and a paged
+    decode. Counts set to 0 just before, read just after; small inputs
+    equal to the CPU's plain path."""
+    from repro_torch.kernels import ops as K
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=DEVICE)
+    lens = torch.tensor([1024, 1, 700, 64, 0, 333, 900, 128], device=DEVICE,
+                        dtype=torch.int32)
+    bt = torch.arange(1, 129, device=DEVICE, dtype=torch.int32).reshape(8, 16)
+    calls = {
+        "fused causal prefill": (
+            lambda q, k, v, n: K.raceit_attention_fused(q, k, v, causal=True),
+            (randn(1, 16, 512, 128), randn(1, 16, 512, 128),
+             randn(1, 16, 512, 128), None)),
+        "decode_fused slot pool": (
+            lambda q, k, v, n: K.raceit_attention_decode_fused(q, k, v, n),
+            (randn(8, 16, 1, 128), randn(8, 16, 1024, 128),
+             randn(8, 16, 1024, 128), lens)),
+        "decode_gqa one tile": (
+            lambda q, k, v, n: K.raceit_attention_decode_gqa(q, k, v, n),
+            (randn(1, 48, 1, 128), randn(1, 4, 512, 128),
+             randn(1, 4, 512, 128), torch.tensor([400], device=DEVICE))),
+        "decode_paged": (
+            lambda q, k, v, n: K.raceit_attention_decode_paged(
+                q, k, v, n, bt.to(q.device)),
+            (randn(8, 16, 1, 128), randn(129, 64, 16, 128),
+             randn(129, 64, 16, 128), lens)),
+    }
+    reset_launches()
+    t0 = time.perf_counter()
+    for what, (fn, args) in calls.items():
+        out = fn(*args)
+        check(out.shape == args[0].shape and bool(torch.isfinite(out).all()),
+              f"{what}: bad output")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {k: v for k, v in launch_counts().items() if k in KERNEL_NAMES}
+    check(counts == {"acam_attention_paged": 2, "acam_attention": 4,
+                     "acam_attention_single": 1},
+          f"the float wrappers launched {counts}")
+    for what, (fn, args) in calls.items():  # the first rows, card and CPU
+        if what == "decode_paged":
+            small = args
+        else:
+            small = tuple(None if a is None else a[:1, :4] if a.ndim == 4
+                          else a[:1] for a in args)
+        got = fn(*small)
+        want = fn(*(None if a is None else a.cpu() for a in small))
+        check(torch.equal(got.cpu(), want), f"{what}: the card and the "
+                                            f"CPU's plain path differ")
+    print(f"[api] sqrt(d) in the kernels, D 128, fold_scale=False: "
+          f"{', '.join(calls)} in {secs:.2f} s; launches {counts}; equal to "
+          f"the CPU's plain path on their first rows ({device_desc})",
+          flush=True)
+    return dict(seconds=secs, launches=counts)
+
+
 # ----------------------------------------------------------- phase 10
 
 def staged_trace(cfg):
@@ -1464,6 +1714,251 @@ def phase_staged(gpt2, device_desc: str) -> dict:
     return res
 
 
+# ----------------------------------------------------------- phase 11
+
+def build_model(name, n_layers=None, max_len=1024, quantize=True,
+                device="cuda"):
+    """(engine, float params) of a catalog model at its published width,
+    random weights from the seed, raceit_q8 serving (digital without
+    ``quantize``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ExecConfig
+    from repro_torch.models import Model, quantize_model_params
+    from repro_torch.serve import GenerationEngine
+    cfg = get_config(name).replace(param_dtype="float32",
+                                   compute_dtype="float32")
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = Model(cfg, device=device).init(gen)
+    if not quantize:
+        return GenerationEngine(cfg, params, ExecConfig(mode="digital"),
+                                max_len=max_len, device=device), params
+    return GenerationEngine(cfg, quantize_model_params(params),
+                            ExecConfig.serving(mode="raceit"),
+                            max_len=max_len, device=device), params
+
+
+def serve_pool(eng, requests, times=None):
+    """The contiguous slot pool of phase 11 on ``requests``: 8 slots,
+    admission prefill pinned at 512 tokens."""
+    from repro_torch.serve import ContinuousBatcher
+    cb = ContinuousBatcher(eng, n_slots=8, paged=False, prefill_len=512)
+    for r in requests:
+        cb.submit(r)
+    if times is not None:
+        timed_engine(eng, times)
+    t0 = time.perf_counter()
+    try:
+        cb.run_all()
+        torch.cuda.synchronize()
+    finally:
+        if times is not None:
+            untimed_engine(eng)
+    return cb, time.perf_counter() - t0
+
+
+def solo_matches(eng, requests, done, margin=None) -> int:
+    """How many of ``requests`` gave their solo `generate` tokens in
+    ``done``. With a ``margin``, a request may part from its solo run only
+    where the solo run's two best logits lie within it (float32 sums of a
+    batch of 8 and of 1 reduce in other orders) and ``done`` took the
+    second."""
+    same = 0
+    for r in requests:
+        logits = []
+        inner = eng._decode, eng._prefill
+
+        def rec(fn):
+            def wrapped(*a, **kw):
+                out = fn(*a, **kw)
+                logits.append(out[0][0, -1].float())
+                return out
+            return wrapped
+        eng._decode, eng._prefill = rec(inner[0]), rec(inner[1])
+        try:
+            want = eng.generate(r.prompt[None], r.n_new)[0].tolist()
+        finally:
+            del eng._decode, eng._prefill
+        got = done[r.rid].result.tolist()
+        if got == want:
+            same += 1
+            continue
+        if margin is None:
+            continue
+        i = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+        top2 = torch.topk(logits[i], 2)
+        check(int(top2.indices[1]) == got[i]
+              and float(top2.values[0] - top2.values[1]) < margin,
+              f"request {r.rid} parts from its solo run at token {i} "
+              f"({got[i]} for {want[i]}), not at a near tie")
+    return same
+
+
+def phase_contiguous_pool(device_desc: str) -> dict:
+    """olmo-1b at its published width through the contiguous slot pool."""
+    from repro_torch.kernels import acam_attention as A
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng, fparams = build_model("olmo-1b")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = eng.cfg
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size, cfg.norm)
+          == (16, 2048, 16, 16, 128, 8192, 50304, "np_layernorm"),
+          "olmo-1b is not at its published width")
+    print("[pool] plan:\n" + eng.explain_plan(), flush=True)
+    serve_pool(eng, trace(cfg, n_requests=1, lo=64, hi=64, n_new=2))  # warm
+    requests = trace(cfg)
+    times: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    launches = reset_launches()
+    cb, secs = serve_pool(eng, requests, times)
+    counts = dict(launches)
+    for r in requests:
+        done = cb.done[r.rid]
+        check(done.error is None and len(done.result) == r.n_new == 32,
+              f"request {r.rid}: {done.error or len(done.result)}")
+    calls = cb.prefills + cb.decode_steps
+    check(counts["acam_attention"] == 2 * cfg.n_layers * calls
+          and counts["acam_attention_paged"] == 0
+          and counts["acam_attention_single"] == 0,
+          f"{counts} attention launches for {calls} model calls")
+    tokens = sum(len(cb.done[r.rid].result) for r in requests)
+    s = cb.summary()
+    res = dict(tokens=tokens, seconds=secs, tokens_per_s=tokens / secs,
+               init_s=init_s, prefills=cb.prefills,
+               decode_steps=cb.decode_steps,
+               decode_tokens=cb.decode_tokens, model_calls=s["model_calls"],
+               prefill_ms=1e3 * float(np.mean(times["prefill"])),
+               decode_ms=1e3 * float(np.mean(times["decode"])),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches=counts)
+    print(f"[pool] olmo-1b 16L d2048 raceit_q8, contiguous slot pool (8 "
+          f"slots, prefill_len 512, max_len 1024; init {init_s:.1f} s): "
+          f"{tokens} tokens in {secs:.2f} s = {res['tokens_per_s']:.1f} "
+          f"tok/s; {cb.prefills} prefills (mean {res['prefill_ms']:.1f} ms),"
+          f" {cb.decode_steps} decode steps (mean {res['decode_ms']:.1f} "
+          f"ms), {cb.decode_tokens / cb.decode_steps:.2f} tokens a step; "
+          f"peak memory {res['peak_mem_gib']:.2f} GiB; contiguous attention "
+          f"launches {counts['acam_attention']} = 2 x {cfg.n_layers} x {calls} "
+          f"({device_desc})", flush=True)
+    res["profile"] = profile_run(
+        f"the phase-11 trace again ({cb.prefills} prefills + "
+        f"{cb.decode_steps} decode steps)",
+        lambda: serve_pool(eng, trace(cfg)),
+        lambda: serve_pool(eng, trace(cfg, n_requests=1, lo=64, hi=64,
+                                      n_new=2)),
+        {"acam_attention_paged": 0, "acam_attention": counts["acam_attention"],
+         "acam_attention_single": 0}, top=10)
+    # raceit_q8 couples a pool's rows through whole-tensor quantizer scales
+    # (as the reference says of its batcher), so its tokens are compared
+    # with solo runs, not held to them
+    res["raceit_same_as_solo"] = solo_matches(eng, requests, cb.done)
+    # the kernels against their plain versions on the pool, 4 layers
+    short = shallow(eng, 4)
+    few = trace(cfg, n_requests=4, lo=64, hi=300, n_new=8)
+    cb_k, _ = serve_pool(short, few)
+    cb_p, _ = swapped_to_plain(lambda: serve_pool(short, few))
+    for r in few:
+        got, want = cb_k.done[r.rid].result.tolist(), \
+            cb_p.done[r.rid].result.tolist()
+        check(got == want, f"pool request {r.rid}: kernel {got} != plain "
+                           f"{want}")
+    del eng, short
+    torch.cuda.empty_cache()
+    # digital greedy: the pool's tokens are a solo run's, as the reference
+    # holds its batcher (its one exact mode), on the same float weights
+    from repro_torch.configs.base import ExecConfig
+    from repro_torch.serve import GenerationEngine
+    deng = GenerationEngine(cfg, fparams, ExecConfig(mode="digital"),
+                            max_len=1024, device=DEVICE)
+    cb_d, _ = serve_pool(deng, trace(cfg))
+    res["digital_same_as_solo"] = solo_matches(deng, trace(cfg), cb_d.done,
+                                               margin=1e-3)
+    print(f"[pool] kernels equal to plain attention on a 4-layer pool ("
+          f"{len(few)} requests); digital pool: "
+          f"{res['digital_same_as_solo']} of {len(requests)} requests equal "
+          f"to their solo runs (the rest part at a near tie); raceit_q8 "
+          f"pool: {res['raceit_same_as_solo']} of {len(requests)} equal to "
+          f"solo runs on the same engine (not held: whole-tensor scales "
+          f"couple the slots) ({device_desc})", flush=True)
+    del deng, fparams
+    torch.cuda.empty_cache()
+    return res
+
+
+# ----------------------------------------------------------- phase 12
+
+def phase_gqa_bias_paged(device_desc: str) -> dict:
+    """starcoder2-15b (GQA 48:4, qkv biases, LayerNorm, GELU) at its
+    published width, cut to 8 of its 40 layers, through the paged batcher
+    on a short trace."""
+    from repro_torch.kernels import acam_attention as A
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng, _ = build_model("starcoder2-15b", n_layers=8)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = eng.cfg
+    check((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+           cfg.d_ff, cfg.vocab_size, cfg.qkv_bias)
+          == (6144, 48, 4, 128, 24576, 49152, True),
+          "starcoder2-15b is not at its published width")
+    print("[gqa-paged] plan:\n" + eng.explain_plan(), flush=True)
+    serve(eng, trace(cfg, n_requests=1, lo=64, hi=64, n_new=2))  # warm-up
+    requests = trace(cfg, n_requests=8, lo=64, hi=256, n_new=16)
+    launches = reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    cb, secs, times, peak_pages = serve(eng, requests, timed=True)
+    counts = dict(launches)
+    for r in requests:
+        done = cb.done[r.rid]
+        check(done.error is None and len(done.result) == r.n_new,
+              f"request {r.rid}: {done.error or len(done.result)}")
+    calls = cb.chunk_calls + cb.decode_steps
+    check(counts["acam_attention_paged"] == 2 * cfg.n_layers * calls
+          and counts["acam_attention"] == 0
+          and counts["acam_attention_single"] == 0,
+          f"{counts} attention launches for {calls} model calls")
+    tokens = sum(len(cb.done[r.rid].result) for r in requests)
+    res = dict(tokens=tokens, seconds=secs, tokens_per_s=tokens / secs,
+               init_s=init_s, decode_steps=cb.decode_steps,
+               chunk_calls=cb.chunk_calls,
+               decode_ms=1e3 * float(np.mean(times["decode"])),
+               chunk_ms=1e3 * float(np.mean(times["chunk"])),
+               peak_pages=peak_pages,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches=counts)
+    # the paged kernel against its plain version, 2 layers
+    short = shallow(eng, 2)
+    few = trace(cfg, n_requests=3, lo=64, hi=200, n_new=6)
+    cb_k, *_ = serve(short, few)
+    kernel = A._launch_paged
+    A._launch_paged = A.acam_attention_codes_plain
+    try:
+        cb_p, *_ = serve(short, few)
+    finally:
+        A._launch_paged = kernel
+    for r in few:
+        got, want = cb_k.done[r.rid].result.tolist(), \
+            cb_p.done[r.rid].result.tolist()
+        check(got == want, f"request {r.rid}: kernel {got} != plain {want}")
+    print(f"[gqa-paged] starcoder2-15b 8 of 40 layers, d6144, GQA 48:4, "
+          f"qkv bias, raceit_q8 paged (init {init_s:.1f} s): {tokens} "
+          f"tokens in {secs:.2f} s = {res['tokens_per_s']:.1f} tok/s; "
+          f"{cb.decode_steps} decode steps (mean {res['decode_ms']:.1f} ms),"
+          f" {cb.chunk_calls} chunk calls (mean {res['chunk_ms']:.1f} ms); "
+          f"peak pages {peak_pages}; peak memory {res['peak_mem_gib']:.2f} "
+          f"GiB; paged attention launches {counts['acam_attention_paged']} "
+          f"= 2 x 8 x {calls}; kernel equal to plain on a 2-layer run "
+          f"({device_desc})", flush=True)
+    del eng, short
+    torch.cuda.empty_cache()
+    return res
+
+
 def ptxas_report(log: str) -> list:
     """Per kernel of an `nvcc -Xptxas -v` log: registers, static shared
     memory and spill bytes."""
@@ -1502,10 +1997,43 @@ def ptxas_report(log: str) -> list:
     return rows
 
 
+def headline(root: Path) -> None:
+    """``--headline``: the tree at ``root``'s main-path attention cases."""
+    import importlib.util
+    root = root.resolve()
+    sys.path.insert(0, str(root / "src"))
+    spec = importlib.util.spec_from_file_location("tree_smoke",
+                                                  root / "chip_smoke.py")
+    T = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(T)
+    from repro_torch.kernels import build
+    check(Path(build.__file__).resolve().is_relative_to(root),
+          f"{build.__file__} is not the tree's")
+    build.build_all(build.SOURCES)
+    desc = device_line()
+    times: dict = {}
+    for _ in range(3):
+        gen = np.random.default_rng(T.SEED + 1)
+        for c in T.paged_main_cases(gen, "pot") + \
+                T.contiguous_main_cases(gen, "pot"):
+            run = (T.check_attention_case if "bt" in c
+                   else T.check_contiguous_case)
+            times.setdefault(c["name"], []).append(run(c)["ms"])
+            if "sqrt_d" in c and c["q"].shape[-1] == 128:
+                c["sqrt_d"] = 128
+                times.setdefault(c["name"] + " sqrt-d", []).append(
+                    run(c)["ms"])
+    print(f"[headline] {root}: " + json.dumps(
+        {k: min(v) for k, v in times.items()}) + f" ({desc})", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
                          " is False)")
+    if sys.argv[1:2] == ["--headline"]:
+        headline(Path(sys.argv[2]) if len(sys.argv) > 2 else ROOT)
+        return
     from repro_torch.kernels import build
     desc = device_line()
     print(desc, flush=True)
@@ -1543,9 +2071,13 @@ def main() -> None:
     del command_r
     torch.cuda.empty_cache()
     api_res = phase_kernel_api(desc)
+    sqrt_d_res = phase_sqrt_d_api(desc)
     staged_res = phase_staged(gpt2, desc)
     del gpt2
-    print(f"[time] phases 3 to 10: {time.perf_counter() - t_start:.1f} s",
+    torch.cuda.empty_cache()
+    pool_res = phase_contiguous_pool(desc)
+    gqa_res = phase_gqa_bias_paged(desc)
+    print(f"[time] phases 3 to 12: {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     # each kernel's headline: its main-path decode shape in mode pot
@@ -1556,9 +2088,12 @@ def main() -> None:
                 "acam_attention": "src/repro/kernels/acam_attention.py:182",
                 "acam_attention_single": "src/repro/kernels/acam_attention.py:345"}
     # launches on the main paths, each counted from 0 over its own run
-    launches = {"acam_attention_paged": main_res["launches"],
+    launches = {"acam_attention_paged": (
+                    main_res["launches"]
+                    + gqa_res["launches"]["acam_attention_paged"]),
                 "acam_attention": (bucket_res["launches"]["acam_attention"]
-                                   + solo_res["launches"]["acam_attention"]),
+                                   + solo_res["launches"]["acam_attention"]
+                                   + pool_res["launches"]["acam_attention"]),
                 "acam_attention_single":
                     solo_res["launches"]["acam_attention_single"]}
     kernels = []
@@ -1597,7 +2132,10 @@ def main() -> None:
                                     "solo": solo_res,
                                     "profile_contiguous": prof2_res,
                                     "kernel_api": api_res,
-                                    "staged": staged_res}),
+                                    "sqrt_d_api": sqrt_d_res,
+                                    "staged": staged_res,
+                                    "contiguous_pool": pool_res,
+                                    "gqa_bias_paged": gqa_res}),
           flush=True)
     print(desc, flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -13,7 +13,9 @@ Two ways in, one layout out (the port's: ``{"embed", "final_norm",
 The reference stacks each period position's layers along a leading scan
 dimension (``blocks/scan/<j>`` holds layers ``r*P + j``) and keeps the
 ``n_layers % P`` remainder in ``blocks/tail``; both are unstacked into
-per-layer dicts in layer order. Float weights come across as they are;
+per-layer dicts in layer order; the empty parameter dicts of a
+non-parametric LayerNorm, which a checkpoint does not store, come back
+empty. Float weights come across as they are;
 `repro_torch.models.quantize_model_params` then makes resident codes
 bit-identical to the reference's.
 """
@@ -67,8 +69,11 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
             layers.append(_unstack(scan[j], r, device))
         else:
             layers.append(_tree(tail[t - n_full * P], device))
+        # a non-parametric LayerNorm is an empty dict, which leaves no path
+        for norm in ("norm1", "norm2"):
+            layers[-1].setdefault(norm, {})
     return {"embed": _tree(tree["embed"], device),
-            "final_norm": _tree(tree["final_norm"], device),
+            "final_norm": _tree(tree.get("final_norm", {}), device),
             "blocks": layers}
 
 

@@ -23,6 +23,13 @@ spells out:
   (`PoTFormat.decode` on a tensor, `pot_decode_runtime`) has other values.
 * ``jnp.sum`` over the last axis adds runs of 32 elements one by one, then
   sums the run totals by the same rule (`sum_chunks`, `ref_sum`).
+* XLA moves the ``1/127`` constants out of a product of two quantizer
+  scales and folds them (`scale_product`).
+* The attention kernels' ``logits / sqrt_d`` (``sqrt_d`` a trace-time
+  constant, sqrt(d) not a power of two) is a multiply by ``f32(1 /
+  sqrt(d))`` after the one by ``s1``, in the interpret-mode Pallas kernel
+  too (a sweep of logits an ulp from a LOGIT half step rules out the
+  division; `repro_torch.kernels.acam_attention.sqrt_d_rule`).
 """
 from __future__ import annotations
 

@@ -8,8 +8,9 @@
 // per group g (a query head, or a KV head with its rep sharing queries) and
 // query row i:
 //
-//   pass A  x = LOGIT code of round(f32(q.k) * s1 / 2^-3), masked keys at the
-//           LOGIT minimum; S = sum over valid keys of exp_val[x] in the
+//   pass A  x = LOGIT code of round(f32(q.k) * s1 [* rsd] / 2^-3), masked keys
+//           at the LOGIT minimum (rsd = f32(1 / sqrt(d)) where the reference
+//           divides by sqrt(d) in the kernel, acam_common.cuh logit_of); S = sum over valid keys of exp_val[x] in the
 //           reference's order; xmax = max valid x; the row's max PROB code
 //           c = prob_lut[clip(xmax - LOG(S)<<fs)], folded into one call-wide
 //           cmax with an integer atomicMax (order-free, so deterministic)
@@ -88,12 +89,12 @@ using namespace acam;
 // Pass A: LOGIT codes, run totals and span maxima of the block's rows and
 // span; the unit's last block finishes the rows. kW warps: 4 for units of
 // up to 16 rows (decode: more blocks resident, one wave), else 8.
-template <int kW>
+template <int kW, bool kWide>
 __global__ void __launch_bounds__(32 * kW) contiguous_sums(CParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const CSlice s = contiguous_slice(p);
   const CLayout L = c_layout(p, 0);
-  contiguous_pass_a<false, kW>(p, s, smem, L);
+  contiguous_pass_a<false, kW, kWide>(p, s, smem, L);
   if (contiguous_arrive(p, s)) contiguous_finish<kW>(p, s, smem, L);
 }
 
@@ -122,6 +123,7 @@ struct PParams {
   const int8_t* mask;         // (G / mask_div, Sq, Sk) or null; 0 = masked key
   int mask_div;
   const float* logit_scale;   // () s_q * s_k
+  float rsd;                  // f32(1 / sqrt(d)), or 0: folded into s1
   const float* exp_val;       // [256] f32
   const int* log_lut;         // [256]
   const int* prob_lut;        // [256]
@@ -177,7 +179,9 @@ __device__ __forceinline__ void load_pages(int* pg_s, const PParams& p,
 // Pass A: the LOGIT codes of the block's pages (q . K on the int8 tensor
 // cores), each page's row sums in the reference's order and its LOGIT max;
 // the block that finishes a row tile last adds the page sums in page order
-// and folds the rows' max PROB codes into cmax.
+// and folds the rows' max PROB codes into cmax. kWide (D > 128) adds the
+// q . K steps past 128 dims, q read from shared memory.
+template <bool kWide>
 __global__ void __launch_bounds__(kPThreads) paged_sums(PParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const PSlice s = paged_slice(p);
@@ -279,12 +283,17 @@ __global__ void __launch_bounds__(kPThreads) paged_sums(PParams p) {
               *reinterpret_cast<const unsigned*>(kr + kk * 32 + 16)};
           mma_s8(acc, qa[kk], b);
         }
+        if constexpr (kWide) {  // head dims past 128
+          const unsigned char* qr = q_s + (rt * 16 + gq) * qs_b + 4 * tq;
+          for (int kk = 4; kk < nk; ++kk)
+            mma_s8_smem(acc, qr + kk * 32, qs_b, kr + kk * 32);
+        }
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = rt * 16 + gq + (e >= 2 ? 8 : 0);
           const int c = nt * 8 + 2 * tq + (e & 1);
           if (r >= s.nr || c >= kt) continue;
-          int x = logit_of(acc[e], s1);
+          int x = logit_of(acc[e], s1, p.rsd);
           bool masked = false;
           if (mvec) masked = mb[r * ktm + c] == 0;
           else if (p.mask != nullptr)
@@ -442,84 +451,94 @@ __global__ void __launch_bounds__(kPThreads) paged_probv(PParams p) {
     stage_rows(v_s + (st % kRing) * ktq * dp, dp,
                p.v + ((page * p.gps + s.sub) * ps + sb * kt) * D, D, kt, D);
   };
-  for (int st = 0; st < kRing - 1; ++st) {
-    if (st < nsub) issue(st);
-    cp_async_commit();
-  }
-  // requant table from the global cmax (quantize_tensor of the PROB values)
-  const int cm = p.cells[0];
-  for (int i = tid; i < 256; i += kPThreads)
-    rq_s[i] = requant_code(p.prob_lut[i], cm);
-  if (tid < s.nr) lsh_s[tid] = p.lsh[(long long)s.g * p.Sq + s.r0 + tid];
-
   const int wpr = warps_per_row_tile<4>(s.nr);
   const int rt = warp / wpr, dq = warp % wpr;
   const bool mma_warp = rt * 16 < s.nr;
   const int ndt = (D + 7) / 8;
-  int acc[16][4];
+  // one sweep over the pages for every 16 x wpr output tiles of 8 columns:
+  // one sweep up to D 128, two at D 256 when a warp has a row tile alone
+  for (int d0 = 0; d0 < ndt; d0 += 16 * wpr) {
+    if (d0 > 0) {  // the last sweep's copies and reads are done
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    for (int st = 0; st < kRing - 1; ++st) {
+      if (st < nsub) issue(st);
+      cp_async_commit();
+    }
+    if (d0 == 0) {
+      // requant table from the global cmax (quantize_tensor of the PROB
+      // values)
+      const int cm = p.cells[0];
+      for (int i = tid; i < 256; i += kPThreads)
+        rq_s[i] = requant_code(p.prob_lut[i], cm);
+      if (tid < s.nr) lsh_s[tid] = p.lsh[(long long)s.g * p.Sq + s.r0 + tid];
+    }
+    int acc[16][4];
 #pragma unroll
-  for (int i = 0; i < 16; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0;
+    for (int i = 0; i < 16; ++i)
+      acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0;
 
-  for (int st = 0; st < nsub; ++st) {
-    if (st + kRing - 1 < nsub) issue(st + kRing - 1);
-    cp_async_commit();
-    cp_async_wait<kRing - 1>();
-    __syncthreads();
-    const int j = s.j0 + st / spp, sb = st % spp;
-    const int key0 = j * ps + sb * kt;
-    const unsigned char* cb = c_s + (st % kRing) * R * ktq;
-    for (int i = tid; i < R * (ktq / 4); i += kPThreads) {
-      const int r = i / (ktq / 4), c0 = 4 * (i % (ktq / 4));
-      unsigned word = 0u;
+    for (int st = 0; st < nsub; ++st) {
+      if (st + kRing - 1 < nsub) issue(st + kRing - 1);
+      cp_async_commit();
+      cp_async_wait<kRing - 1>();
+      __syncthreads();
+      const int j = s.j0 + st / spp, sb = st % spp;
+      const int key0 = j * ps + sb * kt;
+      const unsigned char* cb = c_s + (st % kRing) * R * ktq;
+      for (int i = tid; i < R * (ktq / 4); i += kPThreads) {
+        const int r = i / (ktq / 4), c0 = 4 * (i % (ktq / 4));
+        unsigned word = 0u;
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int c = c0 + b;
-        if (r < s.nr && c < kt && key0 + c < s.len) {
-          const int x = (int)(int8_t)cb[r * ktq + c];
-          const int d = min(max(x - lsh_s[r], kLogitMin), kLogitMax);
-          word |= ((unsigned)rq_s[d + 128] & 0xffu) << (8 * b);
+        for (int b = 0; b < 4; ++b) {
+          const int c = c0 + b;
+          if (r < s.nr && c < kt && key0 + c < s.len) {
+            const int x = (int)(int8_t)cb[r * ktq + c];
+            const int d = min(max(x - lsh_s[r], kLogitMin), kLogitMax);
+            word |= ((unsigned)rq_s[d + 128] & 0xffu) << (8 * b);
+          }
+        }
+        *reinterpret_cast<unsigned*>(pc_s + r * pc_b + c0) = word;
+      }
+      transpose_tile(vt_s, pc_b, v_s + (st % kRing) * ktq * dp, dp, ktq, dp,
+                     tid, kPThreads);
+      __syncthreads();
+      if (mma_warp) {
+        const unsigned char* ar = pc_s + (rt * 16 + gq) * pc_b + 4 * tq;
+        for (int kk = 0; kk < ktq / 32; ++kk) {
+          const unsigned a[4] = {
+              *reinterpret_cast<const unsigned*>(ar + kk * 32),
+              *reinterpret_cast<const unsigned*>(ar + 8 * pc_b + kk * 32),
+              *reinterpret_cast<const unsigned*>(ar + kk * 32 + 16),
+              *reinterpret_cast<const unsigned*>(ar + 8 * pc_b + kk * 32 + 16)};
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            const int nd = d0 + dq + i * wpr;
+            if (nd >= ndt) break;
+            const unsigned char* br = vt_s + (nd * 8 + gq) * pc_b + 4 * tq;
+            const unsigned b[2] = {
+                *reinterpret_cast<const unsigned*>(br + kk * 32),
+                *reinterpret_cast<const unsigned*>(br + kk * 32 + 16)};
+            mma_s8(acc[i], a, b);
+          }
         }
       }
-      *reinterpret_cast<unsigned*>(pc_s + r * pc_b + c0) = word;
     }
-    transpose_tile(vt_s, pc_b, v_s + (st % kRing) * ktq * dp, dp, ktq, dp,
-                   tid, kPThreads);
-    __syncthreads();
-    if (mma_warp) {
-      const unsigned char* ar = pc_s + (rt * 16 + gq) * pc_b + 4 * tq;
-      for (int kk = 0; kk < ktq / 32; ++kk) {
-        const unsigned a[4] = {
-            *reinterpret_cast<const unsigned*>(ar + kk * 32),
-            *reinterpret_cast<const unsigned*>(ar + 8 * pc_b + kk * 32),
-            *reinterpret_cast<const unsigned*>(ar + kk * 32 + 16),
-            *reinterpret_cast<const unsigned*>(ar + 8 * pc_b + kk * 32 + 16)};
+    if (!mma_warp) continue;
 #pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          const int nd = dq + i * wpr;
-          if (nd >= ndt) break;
-          const unsigned char* br = vt_s + (nd * 8 + gq) * pc_b + 4 * tq;
-          const unsigned b[2] = {
-              *reinterpret_cast<const unsigned*>(br + kk * 32),
-              *reinterpret_cast<const unsigned*>(br + kk * 32 + 16)};
-          mma_s8(acc[i], a, b);
-        }
+    for (int i = 0; i < 16; ++i) {
+      const int nd = d0 + dq + i * wpr;
+      if (nd >= ndt) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = rt * 16 + gq + (e >= 2 ? 8 : 0);
+        const int d = nd * 8 + 2 * tq + (e & 1);
+        if (r >= s.nr || d >= D) continue;
+        int* o = p.out + ((long long)s.g * p.Sq + s.r0 + r) * D + d;
+        if (atomic) atomicAdd(o, acc[i][e]);
+        else *o = acc[i][e];
       }
-    }
-  }
-  if (!mma_warp) return;
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const int nd = dq + i * wpr;
-    if (nd >= ndt) break;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = rt * 16 + gq + (e >= 2 ? 8 : 0);
-      const int d = nd * 8 + 2 * tq + (e & 1);
-      if (r >= s.nr || d >= D) continue;
-      int* o = p.out + ((long long)s.g * p.Sq + s.r0 + r) * D + d;
-      if (atomic) atomicAdd(o, acc[i][e]);
-      else *o = acc[i][e];
     }
   }
 }
@@ -551,13 +570,13 @@ size_t smem_paged_probv(const PParams& p) {
 extern "C" int acam_attention_paged_launch(
     int pass, const void* q, const void* k, const void* v,
     const void* block_table, const void* kv_len, const void* mask,
-    int mask_div, const void* logit_scale, const void* exp_val,
+    int mask_div, const void* logit_scale, float rsd, const void* exp_val,
     const void* log_lut, const void* prob_lut, void* out, void* page_sum,
     void* page_max, void* codes, void* lsh, void* cells, int G, int Sq, int D,
     int page_size, int max_pages, int gps, int splits, int pages_per_split,
     int kt, int psp, float e_min, float step_scale, float safe_min, float thr,
     int frac_shift, void* stream) {
-  if (D % 4 != 0 || D <= 0 || D > 128 || G <= 0 || Sq <= 0 ||
+  if (D % 4 != 0 || D <= 0 || D > kMaxD || G <= 0 || Sq <= 0 ||
       page_size <= 0 || page_size > 32768 || max_pages <= 0 || kt <= 0 ||
       kt > 64 || page_size % kt != 0 || (kt > kRun && kt % kRun != 0) ||
       psp < page_size || psp % 16 != 0 || splits <= 0 ||
@@ -572,6 +591,7 @@ extern "C" int acam_attention_paged_launch(
   p.mask = static_cast<const int8_t*>(mask);
   p.mask_div = mask_div;
   p.logit_scale = static_cast<const float*>(logit_scale);
+  p.rsd = rsd;
   p.exp_val = static_cast<const float*>(exp_val);
   p.log_lut = static_cast<const int*>(log_lut);
   p.prob_lut = static_cast<const int*>(prob_lut);
@@ -592,14 +612,18 @@ extern "C" int acam_attention_paged_launch(
 
   const dim3 grid(G * p.row_tiles, splits);
   const size_t smem = pass == 0 ? smem_paged_sums(p) : smem_paged_probv(p);
-  const void* fn = pass == 0 ? (const void*)paged_sums
-                             : (const void*)paged_probv;
+  const bool wide_d = D > 128;
+  const void* fn = pass != 0 ? (const void*)paged_probv
+                   : wide_d  ? (const void*)paged_sums<true>
+                             : (const void*)paged_sums<false>;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (pass == 0) {
-    paged_sums<<<grid, kPThreads, smem, st>>>(p);
+  if (pass == 0 && wide_d) {
+    paged_sums<true><<<grid, kPThreads, smem, st>>>(p);
+  } else if (pass == 0) {
+    paged_sums<false><<<grid, kPThreads, smem, st>>>(p);
   } else {
     paged_probv<<<grid, kPThreads, smem, st>>>(p);
   }
@@ -612,7 +636,7 @@ extern "C" int acam_attention_paged_launch(
 // splits), each taking `per` runs of the one key block or `per` key blocks.
 extern "C" int acam_attention_contiguous_launch(
     int pass, const void* q, const void* k, const void* v, const void* kv_len,
-    const void* mask, int mask_div, const void* logit_scale,
+    const void* mask, int mask_div, const void* logit_scale, float rsd,
     const void* q_offset, int q_off, const void* exp_val,
     const void* log_lut, const void* prob_lut, void* out, void* run_tot,
     void* span_max,
@@ -623,17 +647,20 @@ extern "C" int acam_attention_contiguous_launch(
   CParams p;
   if (codes == nullptr ||
       !contiguous_params(p, q, k, v, kv_len, mask, mask_div, logit_scale,
-                         q_offset, q_off, exp_val, log_lut, prob_lut, out,
-                         run_tot, span_max, codes, lsh, cells, G, Sq, Sk, D,
+                         rsd, q_offset, q_off, exp_val, log_lut, prob_lut,
+                         out, run_tot, span_max, codes, lsh, cells, G, Sq, Sk, D,
                          bk, causal, per_row, splits, per, psp, e_min,
                          step_scale, safe_min, thr, frac_shift))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(p.units, splits);
   const size_t smem = c_layout(p, pass == 0 ? 0 : 1).total;
   const bool wide = Sq > 16;  // 8 warps a block, else 4
+  const bool wide_d = D > 128;
   const void* fn =
-      pass == 0 ? (wide ? (const void*)contiguous_sums<8>
-                        : (const void*)contiguous_sums<4>)
+      pass == 0 ? (wide ? (wide_d ? (const void*)contiguous_sums<8, true>
+                                  : (const void*)contiguous_sums<8, false>)
+                        : (wide_d ? (const void*)contiguous_sums<4, true>
+                                  : (const void*)contiguous_sums<4, false>))
                 : (wide ? (const void*)contiguous_probv<8>
                         : (const void*)contiguous_probv<4>);
   cudaError_t err = cudaFuncSetAttribute(
@@ -641,10 +668,14 @@ extern "C" int acam_attention_contiguous_launch(
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int threads = wide ? 256 : 128;
-  if (pass == 0 && wide) {
-    contiguous_sums<8><<<grid, threads, smem, st>>>(p);
+  if (pass == 0 && wide && wide_d) {
+    contiguous_sums<8, true><<<grid, threads, smem, st>>>(p);
+  } else if (pass == 0 && wide) {
+    contiguous_sums<8, false><<<grid, threads, smem, st>>>(p);
+  } else if (pass == 0 && wide_d) {
+    contiguous_sums<4, true><<<grid, threads, smem, st>>>(p);
   } else if (pass == 0) {
-    contiguous_sums<4><<<grid, threads, smem, st>>>(p);
+    contiguous_sums<4, false><<<grid, threads, smem, st>>>(p);
   } else if (wide) {
     contiguous_probv<8><<<grid, threads, smem, st>>>(p);
   } else {

@@ -67,11 +67,12 @@ __device__ __forceinline__ void grid_barrier(int* count, int blocks) {
 // 8 warps a CTA: one CTA an SM at most, so each CTA's own latency counts
 constexpr int kSWarps = 8;
 
+template <bool kWide>
 __global__ void __launch_bounds__(32 * kSWarps) single_tile(CParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const CSlice s = contiguous_slice(p);
   const CLayout L = c_layout(p, 2);
-  contiguous_pass_a<true, kSWarps>(p, s, smem, L);
+  contiguous_pass_a<true, kSWarps, kWide>(p, s, smem, L);
   if (contiguous_arrive(p, s)) contiguous_finish<kSWarps>(p, s, smem, L);
   grid_barrier(p.cells + 1 + p.units, gridDim.x * gridDim.y);
   contiguous_pass_b<true, kSWarps>(p, s, smem, L);
@@ -84,7 +85,7 @@ __global__ void __launch_bounds__(32 * kSWarps) single_tile(CParams p) {
 // 2 + G * ceil(Sq / 64) zeroed ints, the first seeded with cmax_floor.
 extern "C" int acam_attention_single_launch(
     const void* q, const void* k, const void* v, const void* kv_len,
-    const void* mask, int mask_div, const void* logit_scale,
+    const void* mask, int mask_div, const void* logit_scale, float rsd,
     const void* q_offset, int q_off, const void* exp_val,
     const void* log_lut, const void* prob_lut, void* out, void* run_tot,
     void* span_max,
@@ -95,20 +96,21 @@ extern "C" int acam_attention_single_launch(
   CParams p;
   if (G > 8 || Sq > 256 || skp < Sk || skp > 512 ||
       !contiguous_params(p, q, k, v, kv_len, mask, mask_div, logit_scale,
-                         q_offset, q_off, exp_val, log_lut, prob_lut, out,
-                         run_tot, span_max, nullptr, lsh, cells, G, Sq, Sk, D,
+                         rsd, q_offset, q_off, exp_val, log_lut, prob_lut,
+                         out, run_tot, span_max, nullptr, lsh, cells, G, Sq, Sk, D,
                          skp, causal, per_row, splits, per, 0, e_min,
                          step_scale, safe_min, thr, frac_shift))
     return (int)cudaErrorInvalidValue;
   const size_t smem = c_layout(p, 2).total;
+  const void* fn = D > 128 ? (const void*)single_tile<true>
+                           : (const void*)single_tile<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      (const void*)single_tile, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {&p};
   // refused (cudaErrorCooperativeLaunchTooLarge) unless every CTA fits
-  err = cudaLaunchCooperativeKernel((const void*)single_tile,
-                                    dim3(p.units, splits), dim3(32 * kSWarps),
+  err = cudaLaunchCooperativeKernel(fn, dim3(p.units, splits),
+                                    dim3(32 * kSWarps),
                                     args, smem,
                                     static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;

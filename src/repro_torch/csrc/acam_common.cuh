@@ -12,6 +12,11 @@ namespace acam {
 constexpr int kLogitMin = -128;
 constexpr int kLogitMax = 127;
 constexpr int kRun = 32;  // XLA's CPU reduction adds keys in runs of 32
+// the widest head dim the attention kernels take (a multiple of 4; the
+// wrappers pad narrower odd dims with zero codes). q fragments of the first
+// 128 dims stay in registers, the rest are read from shared memory; PROB . V
+// sweeps the keys once for every 16 x (warps a row tile) output tiles.
+constexpr int kMaxD = 256;
 
 // float32 log as XLA's CPU backend evaluates it (Cephes logf, FMA-contracted)
 __device__ __forceinline__ float ref_logf(float x) {
@@ -57,10 +62,14 @@ __device__ __forceinline__ int pot_encode(float S, const PotConsts& c) {
 }
 
 // the LOGIT code of one (query, key) pair from its int32 dot product:
-// matmul-1 + div-add; the division by 2^-3 is the multiply by 8 (both
-// exact, so the same float)
-__device__ __forceinline__ int logit_of(int dot, float s1) {
-  const float logits = __fmul_rn(__int2float_rn(dot), s1);
+// matmul-1 + div-add. rsd is f32(1 / sqrt(d)) where sqrt(d) is not a power
+// of two (0 when it is folded into s1): the reference divides by the
+// constant sqrt(d) in a jitted graph, which XLA turns into this multiply,
+// after the one by s1. The division by 2^-3 is the multiply by 8 (both
+// exact, so the same float).
+__device__ __forceinline__ int logit_of(int dot, float s1, float rsd) {
+  float logits = __fmul_rn(__int2float_rn(dot), s1);
+  if (rsd != 0.0f) logits = __fmul_rn(logits, rsd);
   const float x = rintf(__fmul_rn(logits, 8.0f));
   return __float2int_rn(fminf(fmaxf(x, (float)kLogitMin), (float)kLogitMax));
 }

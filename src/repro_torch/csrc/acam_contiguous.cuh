@@ -67,6 +67,7 @@ struct CParams {
   const int8_t* mask;         // (G / mask_div, Sq, Sk) or null; 0 = masked
   int mask_div;
   const float* logit_scale;   // () s_q * s_k
+  float rsd;                  // f32(1 / sqrt(d)), or 0: folded into s1
   const int* q_offset;        // () causal offset of row 0, or null: q_off
   int q_off;
   const float* exp_val;       // [256] f32
@@ -155,8 +156,9 @@ __host__ __device__ inline CLayout c_layout(const CParams& p, int kind) {
 
 // Pass A of one block (see the header). With kKeep the codes stay in
 // shared memory for pass B of the same block (the one-tile kernel, whose
-// span is one segment); else each segment's codes go to p.codes.
-template <bool kKeep, int kW>
+// span is one segment); else each segment's codes go to p.codes. kWide
+// (D > 128) adds the q . K steps past 128 dims, q read from shared memory.
+template <bool kKeep, int kW, bool kWide>
 __device__ __forceinline__ void contiguous_pass_a(const CParams& p,
                                                   const CSlice& s,
                                                   unsigned char* smem,
@@ -254,12 +256,17 @@ __device__ __forceinline__ void contiguous_pass_a(const CParams& p,
               *reinterpret_cast<const unsigned*>(kr + kk * 32 + 16)};
           mma_s8(acc, qa[kk], b);
         }
+        if constexpr (kWide) {  // head dims past 128
+          const unsigned char* qr = q_s + (rt * 16 + gq) * qs_b + 4 * tq;
+          for (int kk = 4; kk < nk; ++kk)
+            mma_s8_smem(acc, qr + kk * 32, qs_b, kr + kk * 32);
+        }
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = rt * 16 + gq + (e >= 2 ? 8 : 0);
           const int c = n8 * 8 + 2 * tq + (e & 1);
           if (r >= s.nr || c >= nt) continue;
-          int x = logit_of(acc[e], s1);
+          int x = logit_of(acc[e], s1, p.rsd);
           const bool masked =
               mvec ? mb[r * kCTile + c] == 0
                    : (p.causal && key0 + c > s.r0 + r + s.qoff);
@@ -455,92 +462,101 @@ __device__ __forceinline__ void contiguous_pass_b(const CParams& p,
     stage_rows(v_s + (st % kCRing) * kCTile * dp, dp,
                p.v + ((long long)s.g * p.Sk + key0) * D, D, nt, D);
   };
-  for (int st = 0; st < kCRing - 1; ++st) {
-    if (st < s.ntile) issue(st);
-    cp_async_commit();
-  }
-  // requant table from the call-wide cmax (quantize_tensor of the PROB
-  // values), written by other blocks: read past L1
-  const int cm = __ldcg(p.cells);
-  for (int i = tid; i < 256; i += nth)
-    rq_s[i] = requant_code(p.prob_lut[i], cm);
-  if (tid < s.nr) lsh_s[tid] = __ldcg(p.lsh + row0 + tid);
-
   const int wpr = warps_per_row_tile<kW>(s.nr);
   const int rt = warp / wpr, dq = warp % wpr;
   const bool mma_warp = rt * 16 < s.nr;
   const int ndt = (D + 7) / 8;
-  int acc[16][4];
+  // one sweep over the keys for every 16 x wpr output tiles of 8 columns:
+  // one sweep up to D 128, two at D 256 when a warp has a row tile alone
+  for (int d0 = 0; d0 < ndt; d0 += 16 * wpr) {
+    if (d0 > 0) {  // the last sweep's copies and reads are done
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    for (int st = 0; st < kCRing - 1; ++st) {
+      if (st < s.ntile) issue(st);
+      cp_async_commit();
+    }
+    if (d0 == 0) {
+      // requant table from the call-wide cmax (quantize_tensor of the PROB
+      // values), written by other blocks: read past L1
+      const int cm = __ldcg(p.cells);
+      for (int i = tid; i < 256; i += nth)
+        rq_s[i] = requant_code(p.prob_lut[i], cm);
+      if (tid < s.nr) lsh_s[tid] = __ldcg(p.lsh + row0 + tid);
+    }
+    int acc[16][4];
 #pragma unroll
-  for (int i = 0; i < 16; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0;
+    for (int i = 0; i < 16; ++i)
+      acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0;
 
-  for (int st = 0; st < s.ntile; ++st) {
-    cp_async_wait<kCRing - 2>();
-    __syncthreads();  // tile st is in; every warp is done with st - 1
-    if (st + kCRing - 1 < s.ntile) issue(st + kCRing - 1);
-    cp_async_commit();
-    const int key0 = s.ka + st * kCTile, nt = min(kCTile, s.ke - key0);
-    const unsigned char* cb =
-        kKeep ? reinterpret_cast<const unsigned char*>(x_s) + (key0 - s.ka)
-              : c_s + (st % kCRing) * R * kCTile;
-    const int cpitch = kKeep ? p.xs_b : kCTile;
-    // code rows are 4-byte aligned (a pitch of 64, or xs_b from a tile
-    // start), so each thread takes a word of 4 codes
-    for (int i = tid; i < R * (kCTile / 4); i += nth) {
-      const int r = i / (kCTile / 4), c0 = 4 * (i % (kCTile / 4));
-      unsigned word = 0u;
-      if (r < s.nr && c0 < nt) {
-        const int lr = lsh_s[r];
-        const int xw = *reinterpret_cast<const int*>(cb + r * cpitch + c0);
+    for (int st = 0; st < s.ntile; ++st) {
+      cp_async_wait<kCRing - 2>();
+      __syncthreads();  // tile st is in; every warp is done with st - 1
+      if (st + kCRing - 1 < s.ntile) issue(st + kCRing - 1);
+      cp_async_commit();
+      const int key0 = s.ka + st * kCTile, nt = min(kCTile, s.ke - key0);
+      const unsigned char* cb =
+          kKeep ? reinterpret_cast<const unsigned char*>(x_s) + (key0 - s.ka)
+                : c_s + (st % kCRing) * R * kCTile;
+      const int cpitch = kKeep ? p.xs_b : kCTile;
+      // code rows are 4-byte aligned (a pitch of 64, or xs_b from a tile
+      // start), so each thread takes a word of 4 codes
+      for (int i = tid; i < R * (kCTile / 4); i += nth) {
+        const int r = i / (kCTile / 4), c0 = 4 * (i % (kCTile / 4));
+        unsigned word = 0u;
+        if (r < s.nr && c0 < nt) {
+          const int lr = lsh_s[r];
+          const int xw = *reinterpret_cast<const int*>(cb + r * cpitch + c0);
 #pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const int x = (xw << (24 - 8 * b)) >> 24;
-          const int d = min(max(x - lr, kLogitMin), kLogitMax);
-          if (c0 + b < nt)
-            word |= ((unsigned)rq_s[d + 128] & 0xffu) << (8 * b);
+          for (int b = 0; b < 4; ++b) {
+            const int x = (xw << (24 - 8 * b)) >> 24;
+            const int d = min(max(x - lr, kLogitMin), kLogitMax);
+            if (c0 + b < nt)
+              word |= ((unsigned)rq_s[d + 128] & 0xffu) << (8 * b);
+          }
+        }
+        *reinterpret_cast<unsigned*>(pc_s + r * pc_b + c0) = word;
+      }
+      transpose_tile(vt_s, pc_b, v_s + (st % kCRing) * kCTile * dp, dp,
+                     kCTile, dp, tid, nth);
+      __syncthreads();
+      if (mma_warp) {
+        const unsigned char* ar = pc_s + (rt * 16 + gq) * pc_b + 4 * tq;
+#pragma unroll
+        for (int kk = 0; kk < kCTile / 32; ++kk) {
+          const unsigned a[4] = {
+              *reinterpret_cast<const unsigned*>(ar + kk * 32),
+              *reinterpret_cast<const unsigned*>(ar + 8 * pc_b + kk * 32),
+              *reinterpret_cast<const unsigned*>(ar + kk * 32 + 16),
+              *reinterpret_cast<const unsigned*>(ar + 8 * pc_b + kk * 32 + 16)};
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            const int nd = d0 + dq + i * wpr;
+            if (nd >= ndt) break;
+            const unsigned char* br = vt_s + (nd * 8 + gq) * pc_b + 4 * tq;
+            const unsigned b[2] = {
+                *reinterpret_cast<const unsigned*>(br + kk * 32),
+                *reinterpret_cast<const unsigned*>(br + kk * 32 + 16)};
+            mma_s8(acc[i], a, b);
+          }
         }
       }
-      *reinterpret_cast<unsigned*>(pc_s + r * pc_b + c0) = word;
     }
-    transpose_tile(vt_s, pc_b, v_s + (st % kCRing) * kCTile * dp, dp, kCTile,
-                   dp, tid, nth);
-    __syncthreads();
-    if (mma_warp) {
-      const unsigned char* ar = pc_s + (rt * 16 + gq) * pc_b + 4 * tq;
+    if (!mma_warp) continue;
 #pragma unroll
-      for (int kk = 0; kk < kCTile / 32; ++kk) {
-        const unsigned a[4] = {
-            *reinterpret_cast<const unsigned*>(ar + kk * 32),
-            *reinterpret_cast<const unsigned*>(ar + 8 * pc_b + kk * 32),
-            *reinterpret_cast<const unsigned*>(ar + kk * 32 + 16),
-            *reinterpret_cast<const unsigned*>(ar + 8 * pc_b + kk * 32 + 16)};
+    for (int i = 0; i < 16; ++i) {
+      const int nd = d0 + dq + i * wpr;
+      if (nd >= ndt) break;
 #pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          const int nd = dq + i * wpr;
-          if (nd >= ndt) break;
-          const unsigned char* br = vt_s + (nd * 8 + gq) * pc_b + 4 * tq;
-          const unsigned b[2] = {
-              *reinterpret_cast<const unsigned*>(br + kk * 32),
-              *reinterpret_cast<const unsigned*>(br + kk * 32 + 16)};
-          mma_s8(acc[i], a, b);
-        }
+      for (int e = 0; e < 4; ++e) {
+        const int r = rt * 16 + gq + (e >= 2 ? 8 : 0);
+        const int d = nd * 8 + 2 * tq + (e & 1);
+        if (r >= s.nr || d >= D) continue;
+        int* o = p.out + (row0 + r) * D + d;
+        if (atomic) atomicAdd(o, acc[i][e]);
+        else *o = acc[i][e];
       }
-    }
-  }
-  if (!mma_warp) return;
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const int nd = dq + i * wpr;
-    if (nd >= ndt) break;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = rt * 16 + gq + (e >= 2 ? 8 : 0);
-      const int d = nd * 8 + 2 * tq + (e & 1);
-      if (r >= s.nr || d >= D) continue;
-      int* o = p.out + (row0 + r) * D + d;
-      if (atomic) atomicAdd(o, acc[i][e]);
-      else *o = acc[i][e];
     }
   }
 }
@@ -550,14 +566,14 @@ __device__ __forceinline__ void contiguous_pass_b(const CParams& p,
 inline bool contiguous_params(
     CParams& p, const void* q, const void* k, const void* v,
     const void* kv_len, const void* mask, int mask_div,
-    const void* logit_scale, const void* q_offset, int q_off,
+    const void* logit_scale, float rsd, const void* q_offset, int q_off,
     const void* exp_val, const void* log_lut, const void* prob_lut,
     void* out, void* run_tot,
     void* span_max, void* codes, void* lsh, void* cells, int G, int Sq,
     int Sk, int D, int bk, int causal, int per_row, int splits, int per,
     int psp, float e_min, float step_scale, float safe_min, float thr,
     int frac_shift) {
-  if (D % 4 != 0 || D <= 0 || D > 128 || G <= 0 || Sq <= 0 || Sk <= 0 ||
+  if (D % 4 != 0 || D <= 0 || D > kMaxD || G <= 0 || Sq <= 0 || Sk <= 0 ||
       bk <= 0 || bk > 512 || (Sk > bk && bk % kCTile != 0) || splits <= 0 ||
       per <= 0)
     return false;
@@ -568,6 +584,7 @@ inline bool contiguous_params(
   p.mask = static_cast<const int8_t*>(mask);
   p.mask_div = mask_div;
   p.logit_scale = static_cast<const float*>(logit_scale);
+  p.rsd = rsd;
   p.q_offset = static_cast<const int*>(q_offset);
   p.q_off = q_off;
   p.exp_val = static_cast<const float*>(exp_val);

@@ -48,6 +48,21 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// d += a . b with both fragments read from shared memory: A's row g at a
+// (row g + 8 a pitch of `pitch` bytes below), B's column g at b
+__device__ __forceinline__ void mma_s8_smem(int (&d)[4],
+                                            const unsigned char* a, int pitch,
+                                            const unsigned char* b) {
+  const unsigned af[4] = {
+      *reinterpret_cast<const unsigned*>(a),
+      *reinterpret_cast<const unsigned*>(a + 8 * pitch),
+      *reinterpret_cast<const unsigned*>(a + 16),
+      *reinterpret_cast<const unsigned*>(a + 8 * pitch + 16)};
+  const unsigned bf[2] = {*reinterpret_cast<const unsigned*>(b),
+                          *reinterpret_cast<const unsigned*>(b + 16)};
+  mma_s8(d, af, bf);
+}
+
 // d += a . b on unsigned int8 values (bit planes), int32 sums
 __device__ __forceinline__ void mma_u8(int (&d)[4], const unsigned (&a)[4],
                                        const unsigned (&b)[2]) {

@@ -23,7 +23,10 @@ The shape rule alone picks between the last two, as in the reference. The
 wrapper picks by the device of its inputs alone: a CUDA tensor launches the
 kernel or raises, a CPU tensor runs the plain version. The CPU tests hold
 the plain versions bit for bit against the Pallas kernels, and the chip
-check holds each CUDA kernel against its plain version.
+check holds each CUDA kernel against its plain version. ``scale_by_sqrt_d``
+divides the logits by sqrt(d) in every layout as the reference does
+(`sqrt_d_rule`); the CUDA kernels take head dims up to 256, padded to a
+multiple of 4 with zero codes.
 
 Row coupling is part of the function, as in the reference: the call-wide
 cmax requantizes every row of the call, including the pad rows of slots that
@@ -51,7 +54,7 @@ __all__ = ["acam_attention_codes", "acam_attention_codes_plain",
            "DEFAULT_BLOCK_Q", "DEFAULT_BLOCK_K", "DEFAULT_BLOCK_G", "launches",
            "pot_consts", "PagedPlan", "paged_plan", "PAGED_ROWS",
            "ContiguousPlan", "contiguous_plan", "single_plan",
-           "CONTIGUOUS_ROWS"]
+           "CONTIGUOUS_ROWS", "sqrt_d_rule", "CUDA_MAX_HEAD_DIM"]
 
 FUSED_SOFTMAX_MODES = ("pot", "pot_fine", "uniform")
 
@@ -149,15 +152,36 @@ def one_tile(G: int, Sq: int, Sk: int) -> bool:
     return -(-G // bg) == 1 and -(-Sq // bq) == 1 and -(-Sk // key_block(Sk)) == 1
 
 
-def _logit_codes(q, k, s1, mask, causal, q_offset):
+def sqrt_d_rule(logit_scale: torch.Tensor, scale_by_sqrt_d):
+    """The reference's ``scale_by_sqrt_d`` rule: (logit scale, rsd).
+
+    Where sqrt(d) (rounded to float32) is a power of two the division
+    commutes with rounding and folds into the scalar; otherwise the kernels
+    take ``rsd = f32(1 / sqrt(d))`` and multiply every logit by it after
+    ``* s1``: the reference divides by a trace-time constant inside a jitted
+    graph, which XLA rewrites into that reciprocal multiply
+    (`repro_torch.core.quant`). ``rsd`` is None when nothing is left to do.
+    """
+    if scale_by_sqrt_d is None:
+        return logit_scale, None
+    sqrt_d = np.sqrt(_F32(scale_by_sqrt_d), dtype=_F32)
+    if float(np.log2(sqrt_d)) % 1.0 == 0.0:
+        return logit_scale / float(sqrt_d), None
+    return logit_scale, float(_F32(1) / sqrt_d)
+
+
+def _logit_codes(q, k, s1, mask, causal, q_offset, rsd=None):
     """matmul-1 + div-add: (G, Sq, Sk) LOGIT codes, masked keys at the LOGIT
     minimum. ``mask`` (Gm, Sq, Sk) serves G // Gm consecutive groups per row;
     else ``causal`` masks key kpos of row i when kpos > i + q_offset. The
-    integer products run in float64, exact for these ranges on any device."""
+    integer products run in float64, exact for these ranges on any device;
+    ``rsd`` (`sqrt_d_rule`) multiplies the float32 logits after ``* s1``."""
     G, Sq, _ = q.shape
     dev = q.device
     r = torch.bmm(q.double(), k.double().transpose(1, 2))
     logits = r.float() * s1.float()
+    if rsd is not None:
+        logits = logits * rsd
     xc = torch.clamp(torch.round(logits / LOGIT_FMT.scale), LOGIT_FMT.code_min,
                      LOGIT_FMT.code_max).to(torch.int32)
     if mask is not None:
@@ -201,12 +225,12 @@ def _prob_v(xc, valid, L, fs, cmax, prob_lut, v):
 
 
 def _two_pass_plain(q, k, v, s1, mask, lens, per_row, mode, cmax_floor,
-                    q_offset, causal, bk):
+                    q_offset, causal, bk, rsd):
     """The streaming kernel's function on logical (G, Sk, D) keys: the row
     sum adds per-block sums of ``bk`` keys in block order."""
     exp_val, log_lut, prob_lut, e_min, step, fs = _device_tables(mode, q.device)
     Sk = k.shape[1]
-    xc = _logit_codes(q, k, s1, mask, causal, q_offset)
+    xc = _logit_codes(q, k, s1, mask, causal, q_offset, rsd)
     valid = torch.arange(Sk, device=q.device)[None, None, :] < lens[:, None, None]
     e = torch.where(valid, exp_val[(xc + 128).long()],
                     torch.zeros((), device=q.device))
@@ -225,7 +249,7 @@ def _two_pass_plain(q, k, v, s1, mask, lens, per_row, mode, cmax_floor,
 
 def acam_attention_codes_plain(q_codes, k_codes, v_codes, logit_scale,
                                mask, kv_len, mode, block_table, page_size,
-                               groups_per_slot, cmax_floor=None):
+                               groups_per_slot, cmax_floor=None, rsd=None):
     """Plain PyTorch version of the paged kernel, in the reference's op order.
 
     Arguments as in `acam_attention_codes` (already checked). Pages are
@@ -240,7 +264,7 @@ def acam_attention_codes_plain(q_codes, k_codes, v_codes, logit_scale,
     vg = v_codes[rows].reshape(G, max_pages * page_size, -1)
     return _two_pass_plain(q_codes, kg, vg, logit_scale, mask,
                            kv_len.to(torch.int32), True, mode, cmax_floor, 0,
-                           False, page_size)
+                           False, page_size, rsd)
 
 
 # the paged kernels' split (csrc/acam_attention.cu paged_sums/paged_probv)
@@ -345,19 +369,19 @@ def single_plan(G: int, Sq: int, Sk: int) -> ContiguousPlan:
 
 def acam_attention_contiguous_plain(q_codes, k_codes, v_codes, logit_scale,
                                     mask, lens, per_row, mode, cmax_floor,
-                                    q_offset, causal):
+                                    q_offset, causal, rsd=None):
     """Plain PyTorch version of the contiguous two-pass kernel.
 
     ``lens`` (G,) int32 valid keys per group (<= Sk); ``per_row`` says they
     came as a per-group vector, whose zero entries give zero rows."""
     return _two_pass_plain(q_codes, k_codes, v_codes, logit_scale, mask, lens,
                            per_row, mode, cmax_floor, q_offset, causal,
-                           key_block(k_codes.shape[1]))
+                           key_block(k_codes.shape[1]), rsd)
 
 
 def acam_attention_single_plain(q_codes, k_codes, v_codes, logit_scale,
                                 mask, lens, per_row, mode, cmax_floor,
-                                q_offset, causal):
+                                q_offset, causal, rsd=None):
     """Plain PyTorch version of the one-tile kernel, `_attn_kernel_single`
     step by step: the logit codes of the whole tile, one row-sum reduction
     over all ``Skp`` keys (the padded tile), the call-wide cmax, then
@@ -366,7 +390,8 @@ def acam_attention_single_plain(q_codes, k_codes, v_codes, logit_scale,
         mode, q_codes.device)
     Sk = k_codes.shape[1]
     skp = key_block(Sk)
-    xc = _logit_codes(q_codes, k_codes, logit_scale, mask, causal, q_offset)
+    xc = _logit_codes(q_codes, k_codes, logit_scale, mask, causal, q_offset,
+                      rsd)
     valid = (torch.arange(Sk, device=q_codes.device)[None, None, :]
              < lens[:, None, None])
     e = torch.where(valid, exp_val[(xc + 128).long()],
@@ -395,13 +420,13 @@ def pot_consts(e_min: float, step: float):
 
 def _launch_paged(q_codes, k_codes, v_codes, logit_scale, mask, kv_len, mode,
                   block_table, page_size, groups_per_slot, cmax_floor,
-                  plan: PagedPlan | None = None):
+                  plan: PagedPlan | None = None, rsd=None):
     """Both passes on the current stream; ``plan`` defaults to the call's
-    own (`paged_plan`)."""
+    own (`paged_plan`), ``rsd`` is `sqrt_d_rule`'s (None: folded)."""
     import ctypes
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = _bind("acam_attention", "acam_attention_paged_launch",
-               [I, P, P, P, P, P, P, I, P, P, P, P, P, P, P, P, P, P,
+               [I, P, P, P, P, P, P, I, P, F, P, P, P, P, P, P, P, P, P,
                 I, I, I, I, I, I, I, I, I, I, F, F, F, F, I, P])
     dev = q_codes.device
     exp_val, log_lut, prob_lut, e_min, step, fs = _device_tables(mode, dev)
@@ -429,7 +454,8 @@ def _launch_paged(q_codes, k_codes, v_codes, logit_scale, mask, kv_len, mode,
     for pass_id in (0, 1):
         err = fn(pass_id, q_codes.data_ptr(), k_codes.data_ptr(),
                  v_codes.data_ptr(), block_table.data_ptr(), kv_len.data_ptr(),
-                 mask_ptr, mask_div, s1.data_ptr(), exp_val.data_ptr(),
+                 mask_ptr, mask_div, s1.data_ptr(), rsd or 0.0,
+                 exp_val.data_ptr(),
                  log_lut.data_ptr(), prob_lut.data_ptr(), out.data_ptr(),
                  page_sum.data_ptr(), page_max.data_ptr(), codes.data_ptr(),
                  lsh.data_ptr(), cells.data_ptr(), G, Sq, D, page_size,
@@ -443,11 +469,11 @@ def _launch_paged(q_codes, k_codes, v_codes, logit_scale, mask, kv_len, mode,
     return out, cells[0]
 
 
-def _contiguous_args(q_codes, logit_scale, mask, q_offset, mode):
+def _contiguous_args(q_codes, logit_scale, mask, q_offset, mode, rsd):
     """The pointer and constant arguments both contiguous launches share,
     and the small tensors behind them (kept alive by the caller). A Python
     offset goes by value; a tensor offset by pointer (never copied to the
-    host, which would wait for the stream)."""
+    host, which would wait for the stream); ``rsd`` 0.0 means folded."""
     dev = q_codes.device
     exp_val, log_lut, prob_lut, e_min, step, fs = _device_tables(mode, dev)
     s1 = logit_scale.to(torch.float32).reshape(1).contiguous()
@@ -460,7 +486,7 @@ def _contiguous_args(q_codes, logit_scale, mask, q_offset, mode):
     mask_ptr, mask_div = None, 1
     if mask is not None:
         mask_ptr, mask_div = mask.data_ptr(), q_codes.shape[0] // mask.shape[0]
-    args = (mask_ptr, mask_div, s1.data_ptr(), qoff_ptr, qoff_val,
+    args = (mask_ptr, mask_div, s1.data_ptr(), rsd or 0.0, qoff_ptr, qoff_val,
             exp_val.data_ptr(), log_lut.data_ptr(), prob_lut.data_ptr())
     return (s1, qoff), args, (*pot_consts(e_min, step), fs)
 
@@ -487,13 +513,13 @@ def _contiguous_scratch(G, Sq, D, plan: ContiguousPlan, cmax_floor, dev,
 
 def _launch_contiguous(q_codes, k_codes, v_codes, logit_scale, mask, lens,
                        per_row, mode, cmax_floor, q_offset, causal,
-                       plan: ContiguousPlan | None = None):
+                       plan: ContiguousPlan | None = None, rsd=None):
     """Both passes on the current stream; ``plan`` defaults to the call's
-    own (`contiguous_plan`)."""
+    own (`contiguous_plan`), ``rsd`` is `sqrt_d_rule`'s (None: folded)."""
     import ctypes
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = _bind("acam_attention", "acam_attention_contiguous_launch",
-               [I, P, P, P, P, P, I, P, P, I, P, P, P, P, P, P, P, P, P,
+               [I, P, P, P, P, P, I, P, F, P, I, P, P, P, P, P, P, P, P, P,
                 I, I, I, I, I, I, I, I, I, I, F, F, F, F, I, P])
     dev = q_codes.device
     G, Sq, D = q_codes.shape
@@ -501,7 +527,7 @@ def _launch_contiguous(q_codes, k_codes, v_codes, logit_scale, mask, lens,
     bk = key_block(Sk)
     plan = plan or contiguous_plan(G, Sq, Sk, bk)
     _alive, args, consts = _contiguous_args(q_codes, logit_scale, mask,
-                                            q_offset, mode)
+                                            q_offset, mode, rsd)
     out, run_tot, span_max, lsh, cells = _contiguous_scratch(
         G, Sq, D, plan, cmax_floor, dev)
     codes = torch.empty((G * Sq * plan.psp,), dtype=torch.int8, device=dev)
@@ -523,20 +549,20 @@ def _launch_contiguous(q_codes, k_codes, v_codes, logit_scale, mask, lens,
 
 def _launch_single(q_codes, k_codes, v_codes, logit_scale, mask, lens,
                    per_row, mode, cmax_floor, q_offset, causal,
-                   plan: ContiguousPlan | None = None):
+                   plan: ContiguousPlan | None = None, rsd=None):
     """One cooperative launch on the current stream; ``plan`` defaults to
-    the call's own (`single_plan`)."""
+    the call's own (`single_plan`), ``rsd`` is `sqrt_d_rule`'s."""
     import ctypes
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = _bind("acam_attention_single", "acam_attention_single_launch",
-               [P, P, P, P, P, I, P, P, I, P, P, P, P, P, P, P, P,
+               [P, P, P, P, P, I, P, F, P, I, P, P, P, P, P, P, P, P,
                 I, I, I, I, I, I, I, I, I, F, F, F, F, I, P])
     dev = q_codes.device
     G, Sq, D = q_codes.shape
     Sk = k_codes.shape[1]
     plan = plan or single_plan(G, Sq, Sk)
     _alive, args, consts = _contiguous_args(q_codes, logit_scale, mask,
-                                            q_offset, mode)
+                                            q_offset, mode, rsd)
     # one more cell: the grid-wide barrier
     out, run_tot, span_max, lsh, cells = _contiguous_scratch(
         G, Sq, D, plan, cmax_floor, dev, extra_cells=1)
@@ -563,17 +589,36 @@ def _check_operands(named, dev):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _check_cuda_head_dim(D: int) -> None:
-    if D % 4 or D > 128:
-        raise ValueError(f"the CUDA kernels take head dims that are a "
-                         f"multiple of 4 up to 128, got {D}")
+# the CUDA kernels' widest head dim (a multiple of 4; narrower dims that
+# are not pad with zero codes, `_padded_to_4`)
+CUDA_MAX_HEAD_DIM = 256
+
+
+def _padded_to_4(impl, n_int8: int):
+    """``impl`` with its first ``n_int8`` int8 operands (q, k, v: the head
+    dim last) padded with zero codes to a multiple of 4, and the output's
+    pad columns sliced off. Exact: a zero code adds nothing to q . K, and a
+    zero V column only makes an output column that is dropped."""
+    def call(*args, **kw):
+        D = args[0].shape[-1]
+        if D > CUDA_MAX_HEAD_DIM:
+            raise ValueError(f"the CUDA kernels take head dims up to "
+                             f"{CUDA_MAX_HEAD_DIM}, got {D}")
+        pad = (-D) % 4
+        if not pad:
+            return impl(*args, **kw)
+        padded = [torch.nn.functional.pad(a, (0, pad)).contiguous()
+                  for a in args[:n_int8]]
+        out, cmax = impl(*padded, *args[n_int8:], **kw)
+        return out[..., :D].contiguous(), cmax
+    return call
 
 
 def acam_attention_codes(
     q_codes: torch.Tensor,   # (G, Sq, D) int8 — G folds batch x heads
     k_codes: torch.Tensor,   # (G, Sk, D) int8, or the paged pool
     v_codes: torch.Tensor,   # like k_codes
-    logit_scale: torch.Tensor,           # () f32: s_q * s_k (1/sqrt(d) folded)
+    logit_scale: torch.Tensor,           # () f32: s_q * s_k
     mask: Optional[torch.Tensor] = None,  # (Gm, Sq, Sk) bool/int8, 0 = masked
     kv_len=None,             # None, () or (G,) int32 valid keys
     mode: str = "pot",
@@ -583,8 +628,13 @@ def acam_attention_codes(
     cmax_floor=None,                     # () int32: external PROB-max seed
     q_offset=0,              # () int: causal offset of row 0 (cache index)
     causal: bool = False,    # in-kernel causal mask (no mask array)
+    scale_by_sqrt_d: Optional[int] = None,  # d to divide by sqrt(d); None = folded
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused Fig.-12 attention on int8 codes, contiguous or block-paged k/v.
+
+    ``scale_by_sqrt_d`` follows the reference's rule (`sqrt_d_rule`): the
+    logits are divided by sqrt(d) inside the kernel, folded into the scalar
+    when sqrt(d) is a power of two.
 
     Keys past ``kv_len`` (a scalar, or one length per group) do not exist:
     no exp weight, no PROB max, no product with V; zero-length groups of a
@@ -609,10 +659,13 @@ def acam_attention_codes(
     dev = q_codes.device
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"no implementation for device {dev}")
+    logit_scale, rsd = sqrt_d_rule(
+        torch.as_tensor(logit_scale, dtype=torch.float32, device=dev),
+        scale_by_sqrt_d)
     if block_table is not None:
         return _paged_codes(q_codes, k_codes, v_codes, logit_scale, mask,
                             kv_len, mode, block_table, page_size,
-                            groups_per_slot, cmax_floor)
+                            groups_per_slot, cmax_floor, rsd)
     if k_codes.ndim != 3 or k_codes.shape[0] != G or k_codes.shape[2] != D \
             or v_codes.shape != k_codes.shape:
         raise ValueError(f"contiguous k/v must be ({G}, Sk, {D}), got "
@@ -637,17 +690,17 @@ def acam_attention_codes(
         mask = mask.to(device=dev, dtype=torch.int8).contiguous()
     single = one_tile(G, Sq, Sk)
     if dev.type == "cuda":
-        _check_cuda_head_dim(D)
-        impl = _launch_single if single else _launch_contiguous
+        impl = _padded_to_4(_launch_single if single else _launch_contiguous,
+                            3)
     else:
         impl = (acam_attention_single_plain if single
                 else acam_attention_contiguous_plain)
     return impl(q_codes, k_codes, v_codes, logit_scale, mask, lens, per_row,
-                mode, cmax_floor, q_offset, causal)
+                mode, cmax_floor, q_offset, causal, rsd=rsd)
 
 
 def _paged_codes(q_codes, k_codes, v_codes, logit_scale, mask, kv_len, mode,
-                 block_table, page_size, groups_per_slot, cmax_floor):
+                 block_table, page_size, groups_per_slot, cmax_floor, rsd):
     if page_size is None or groups_per_slot is None:
         raise ValueError("paged attention needs page_size and groups_per_slot")
     if kv_len is None or kv_len.ndim != 1:
@@ -680,18 +733,17 @@ def _paged_codes(q_codes, k_codes, v_codes, logit_scale, mask, kv_len, mode,
                              f"got {tuple(mask.shape)}")
         mask = mask.to(torch.int8).contiguous()
     if dev.type == "cuda":
-        _check_cuda_head_dim(D)
-        impl = _launch_paged
+        impl = _padded_to_4(_launch_paged, 3)
     else:
         impl = acam_attention_codes_plain
     return impl(q_codes, k_codes, v_codes, logit_scale, mask, kv_len, mode,
-                block_table, page_size, gps, cmax_floor)
+                block_table, page_size, gps, cmax_floor, rsd=rsd)
 
 
 def acam_attention_decode_codes(q_codes, k_codes, v_codes, logit_scale, kv_len,
                                 mask=None, mode="pot", block_table=None,
                                 page_size=None, groups_per_slot=None,
-                                cmax_floor=None):
+                                cmax_floor=None, scale_by_sqrt_d=None):
     """Decode-mode entry (Sq = 1) against a fixed-shape cache valid to
     ``kv_len`` (scalar, or one length per group). Paged, the flat layout
     folds every query head of a slot into its group stripe
@@ -704,13 +756,15 @@ def acam_attention_decode_codes(q_codes, k_codes, v_codes, logit_scale, kv_len,
                                 kv_len=kv_len, mode=mode,
                                 block_table=block_table, page_size=page_size,
                                 groups_per_slot=groups_per_slot,
-                                cmax_floor=cmax_floor)
+                                cmax_floor=cmax_floor,
+                                scale_by_sqrt_d=scale_by_sqrt_d)
 
 
 def acam_attention_decode_gqa_codes(q_codes, k_codes, v_codes, logit_scale,
                                     kv_len, mask=None, mode="pot",
                                     block_table=None, page_size=None,
-                                    groups_per_slot=None, cmax_floor=None):
+                                    groups_per_slot=None, cmax_floor=None,
+                                    scale_by_sqrt_d=None):
     """GQA-native decode: one group per KV head, its ``rep`` sharing queries
     on the row dimension (paged: ``groups_per_slot`` = KV)."""
     if block_table is not None:
@@ -724,4 +778,5 @@ def acam_attention_decode_gqa_codes(q_codes, k_codes, v_codes, logit_scale,
                                 kv_len=kv_len, mode=mode,
                                 block_table=block_table, page_size=page_size,
                                 groups_per_slot=groups_per_slot,
-                                cmax_floor=cmax_floor)
+                                cmax_floor=cmax_floor,
+                                scale_by_sqrt_d=scale_by_sqrt_d)

@@ -5,12 +5,15 @@ The port of `repro.kernels.ops`. `acam_activation` runs a named
 Compute-ACAM activation through the LUT kernel, `raceit_linear` a float
 linear layer through the crossbar MVM kernel, and `acam_softmax_kernel`
 (re-exported) float logits through the softmax kernel; like the
-reference, they run eagerly. The paged attention wrappers
-quantize float q (whole tensor) and the float KV page pool (per page, with
-one scale over the union of live page entries), run `acam_attention_codes`,
-and descale with the oracle's PROB requant scale; the contiguous decode
-path quantizes the cache's valid prefix (`masked_prefix_quantize`). Every
-quantizer step follows the f32 op sequence of the reference's jitted graph.
+reference, they run eagerly. The attention wrappers quantize float q
+(whole tensor) and k/v (whole tensor; the cache's valid prefix,
+`masked_prefix_quantize`, at decode; per page, with one scale over the
+union of live page entries, on a paged pool), run `acam_attention_codes`,
+and descale with the oracle's PROB requant scale. Every quantizer step
+follows the f32 op sequence of the reference's jitted graph. As in the
+reference, ``fold_scale=False`` (the default) divides the logits by
+sqrt(d) inside the kernel, and ``fold_scale=True`` takes q with 1/sqrt(d)
+folded in (the serving layers' call).
 """
 from __future__ import annotations
 
@@ -32,7 +35,8 @@ from .acam_softmax import acam_softmax_codes, acam_softmax_kernel  # noqa: F401
 
 __all__ = ["acam_activation", "raceit_linear", "acam_lut", "acam_lut_2d",
            "acam_mvm", "acam_softmax_codes", "acam_softmax_kernel",
-           "raceit_attention_fused", "prob_requant_scale", "prob_descale",
+           "raceit_attention_fused", "raceit_attention_decode_fused",
+           "raceit_attention_decode_gqa", "prob_requant_scale", "prob_descale",
            "masked_prefix_quantize", "prefix_quantize_tensor",
            "page_valid_lengths", "masked_page_quantize",
            "page_quantize_tensor", "expand_row_lens",
@@ -58,25 +62,22 @@ def raceit_linear(x: torch.Tensor, w: torch.Tensor,
     return (y.float() * (xq.scale * wq.scale)).reshape(*lead, -1)
 
 
+def _sqrt_d(D: int, fold_scale: bool) -> Optional[int]:
+    """``scale_by_sqrt_d`` of a float wrapper (None: folded into q)."""
+    return None if fold_scale else D
+
+
 def raceit_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            mask: Optional[torch.Tensor] = None,
                            softmax_mode: str = "pot", q_offset=0,
+                           fold_scale: bool = False,
                            causal: bool = False) -> torch.Tensor:
     """Fused Fig.-12 attention, float in/out: q/k/v (B, H, S, D), ``mask``
     broadcastable to (B, H, Sq, Sk). The drop-in for the staged
-    `repro_torch.core.attention.raceit_attention`.
-
-    The kernels take 1/sqrt(D) folded into the logit scale, which is exact
-    (and so the reference's multiply-then-divide) only when sqrt(D) is a
-    power of two; other head dims are not ported here.
-    """
+    `repro_torch.core.attention.raceit_attention`; ``fold_scale=True``
+    takes q with 1/sqrt(D) already folded in."""
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
-    sqrt_d = np.sqrt(np.float32(D), dtype=np.float32)
-    if float(np.log2(sqrt_d)) % 1.0:
-        raise NotImplementedError(
-            f"head dim {D}: the in-kernel division by sqrt(d) is not ported; "
-            f"head dims whose square root is a power of two fold it exactly")
     qq = quantize_tensor(q, bits=8)
     kq = quantize_tensor(k, bits=8)
     vq = quantize_tensor(v, bits=8)
@@ -85,8 +86,8 @@ def raceit_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rows = lambda c, n: c.reshape(B * H, n, D).contiguous()
     out32, cmax = acam_attention_codes(
         rows(qq.codes, Sq), rows(kq.codes, Sk), rows(vq.codes, Sk),
-        scale_product(qq, kq) / float(sqrt_d), mask, q_offset=q_offset,
-        mode=softmax_mode, causal=causal)
+        scale_product(qq, kq), mask, q_offset=q_offset, mode=softmax_mode,
+        causal=causal, scale_by_sqrt_d=_sqrt_d(D, fold_scale))
     return (out32.float() * prob_descale(cmax, vq)).reshape(B, H, Sq, D)
 
 
@@ -182,6 +183,70 @@ def expand_row_lens(kv_len: torch.Tensor, rep: int) -> torch.Tensor:
     return torch.repeat_interleave(kvl, rep) if kvl.ndim == 1 else kvl
 
 
+def _decode_quantize_operands(q, k, v, kv_len):
+    """q whole-tensor int8; the k/v cache buffers (B, heads, Smax, D) int8
+    over their valid prefixes (one scale over the union of the rows')."""
+    return (quantize_tensor(q, bits=8), prefix_quantize_tensor(k, kv_len),
+            prefix_quantize_tensor(v, kv_len))
+
+
+def raceit_attention_decode_fused(
+    q: torch.Tensor,       # (B, H, 1, D) float: the new token's query
+    k: torch.Tensor,       # (B, H, Smax, D) float: the KV cache buffer
+    v: torch.Tensor,       # (B, H, Smax, D) float
+    kv_len,                # () int32 (>= 1) or (B,) per-request lengths
+    softmax_mode: str = "pot",
+    fold_scale: bool = False,
+) -> torch.Tensor:
+    """Fused decode-step attention over a KV cache, float in/out.
+
+    The staged oracle on the cache slice ``k[:, :, :kv_len]``, to the fused
+    kernel's contract: k/v are quantized over the valid prefix only
+    (`masked_prefix_quantize`), keys past ``kv_len`` do not exist for the
+    kernel. A (B,) ``kv_len`` gives every row its own prefix (all H head
+    groups of a row share it); zero-length rows output zeros. The one-tile
+    kernel takes the call when the reference's rule picks it.
+    """
+    B, H, Sq, D = q.shape
+    Smax = k.shape[2]
+    qq, kq, vq = _decode_quantize_operands(q, k, v, kv_len)
+    rows = lambda c, n: c.reshape(B * H, n, D).contiguous()
+    out32, cmax = acam_attention_decode_codes(
+        rows(qq.codes, Sq), rows(kq.codes, Smax), rows(vq.codes, Smax),
+        scale_product(qq, kq), expand_row_lens(torch.as_tensor(kv_len), H),
+        mode=softmax_mode, scale_by_sqrt_d=_sqrt_d(D, fold_scale))
+    return (out32.float() * prob_descale(cmax, vq)).reshape(B, H, Sq, D)
+
+
+def raceit_attention_decode_gqa(
+    q: torch.Tensor,       # (B, H, 1, D) float: all heads' queries
+    k: torch.Tensor,       # (B, KV, Smax, D) float: the native cache
+    v: torch.Tensor,       # (B, KV, Smax, D) float
+    kv_len,                # () int32 (>= 1) or (B,)
+    softmax_mode: str = "pot",
+    fold_scale: bool = False,
+) -> torch.Tensor:
+    """GQA-native fused decode attention, float in/out: one group per KV
+    head, its ``rep = H / KV`` sharing queries on the row dimension, the
+    cache never repeated. The same numbers as `raceit_attention_decode_fused`
+    on the cache repeated to H heads."""
+    B, H, Sq, D = q.shape
+    KV, Smax = k.shape[1], k.shape[2]
+    if Sq != 1:
+        raise ValueError(f"decode path expects Sq=1, got {Sq}")
+    if H % KV:
+        raise ValueError(f"n_heads={H} not a multiple of n_kv_heads={KV}")
+    rep = H // KV
+    qq, kq, vq = _decode_quantize_operands(q, k, v, kv_len)
+    rows = lambda c: c.reshape(B * KV, Smax, D).contiguous()
+    out32, cmax = acam_attention_decode_gqa_codes(
+        qq.codes.reshape(B * KV, rep, D).contiguous(), rows(kq.codes),
+        rows(vq.codes), scale_product(qq, kq),
+        expand_row_lens(torch.as_tensor(kv_len), KV), mode=softmax_mode,
+        scale_by_sqrt_d=_sqrt_d(D, fold_scale))
+    return (out32.float() * prob_descale(cmax, vq)).reshape(B, H, Sq, D)
+
+
 def _paged_quantize_operands(q, k_pool, v_pool, block_table, kv_len):
     """q whole-tensor int8; pooled k/v per-page int8 over live entries."""
     pv = page_valid_lengths(block_table, kv_len, k_pool.shape[0],
@@ -198,11 +263,9 @@ def raceit_attention_decode_paged(
     block_table: torch.Tensor,  # (B, max_pages) int32; 0 = trash page
     mask: Optional[torch.Tensor] = None,  # (B, Sq, max_pages*page_size) bool
     softmax_mode: str = "pot",
+    fold_scale: bool = False,  # True: 1/sqrt(d) already folded into q
 ) -> torch.Tensor:
     """Fused attention over a block-paged KV pool, float in/out.
-
-    ``q`` comes with 1/sqrt(d) folded in (the reference's
-    ``fold_scale=True``, which is how the serving path calls it).
 
     The flat layout: groups are query heads, so physical page ``p``'s stripe
     row ``p*H + h`` holds KV head ``h // rep`` (int8 codes repeated, as the
@@ -226,7 +289,7 @@ def raceit_attention_decode_paged(
         to_rows(vq.codes), scale_product(qq, kq), mask,
         kv_len=expand_row_lens(kv_len, H), mode=softmax_mode,
         block_table=block_table.to(torch.int32).contiguous(), page_size=ps,
-        groups_per_slot=H)
+        groups_per_slot=H, scale_by_sqrt_d=_sqrt_d(D, fold_scale))
     return (out32.float() * prob_descale(cmax, vq)).reshape(B, H, Sq, D)
 
 
@@ -238,9 +301,9 @@ def raceit_attention_decode_gqa_paged(
     block_table: torch.Tensor,  # (B, max_pages) int32
     mask: Optional[torch.Tensor] = None,  # (B, 1, max_pages*page_size) bool
     softmax_mode: str = "pot",
+    fold_scale: bool = False,  # True: 1/sqrt(d) already folded into q
 ) -> torch.Tensor:
-    """GQA-native fused decode over a block-paged pool, float in/out
-    (``q`` with 1/sqrt(d) folded in).
+    """GQA-native fused decode over a block-paged pool, float in/out.
 
     KV heads stay native in the pool (stripe row ``page*KV + kvh``), one
     group per KV head with its ``rep`` sharing queries on the row dimension.
@@ -264,5 +327,5 @@ def raceit_attention_decode_gqa_paged(
         to_rows(vq.codes), scale_product(qq, kq), expand_row_lens(kv_len, KV),
         mask=mask, mode=softmax_mode,
         block_table=block_table.to(torch.int32).contiguous(), page_size=ps,
-        groups_per_slot=KV)
+        groups_per_slot=KV, scale_by_sqrt_d=_sqrt_d(D, fold_scale))
     return (out32.float() * prob_descale(cmax, vq)).reshape(B, H, Sq, D)

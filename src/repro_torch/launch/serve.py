@@ -6,7 +6,9 @@
 The port of `repro.launch.serve`: without ``--continuous`` requests are
 served in left-padded buckets of ``--slots`` by `BatchScheduler` over
 `GenerationEngine.generate` (the reference's default); with it, by the
-block-paged continuous batcher; ``--staged-attention`` serves the
+continuous batcher, block-paged when the model qualifies, or on the
+contiguous slot cache when ``--prefill-len`` pins the admission width (or
+the model has no paged cache form); ``--staged-attention`` serves the
 stage-by-stage oracle attention instead of the fused kernels. Weights are
 made from ``--seed`` at the configuration's published width unless
 ``--ckpt`` names a reference checkpoint directory; ``--set`` overrides
@@ -61,11 +63,15 @@ def main(argv=None):
                     help="reference checkpoint directory (leaves.npz + "
                          "meta.json), read without JAX")
     ap.add_argument("--continuous", action="store_true",
-                    help="serve with the paged continuous batcher (default: "
+                    help="serve with the continuous batcher (default: "
                          "bucketed batching)")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--page-size", type=int, default=64)
     ap.add_argument("--prefill-chunk", type=int, default=None)
+    ap.add_argument("--prefill-len", type=int, default=None,
+                    help="pin the contiguous admission-prefill width (opts "
+                         "out of paged serving; prompts are then capped at "
+                         "this width)")
     ap.add_argument("--router", default="fifo",
                     choices=["fifo", "priority", "wfq"])
     ap.add_argument("--tenant-weights", nargs="*", default=[],
@@ -127,23 +133,30 @@ def main(argv=None):
     weights = parse_tenant_weights(args.tenant_weights)
     if args.continuous:
         sched = ContinuousBatcher(eng, n_slots=args.slots,
+                                  prefill_len=args.prefill_len,
                                   page_size=args.page_size,
                                   prefill_chunk=args.prefill_chunk,
                                   router=args.router,
                                   tenant_weights=weights or None,
                                   tenant_cap=args.tenant_cap,
                                   prefix_cache=args.prefix_cache)
-        print(f"[serve] block-paged KV on {device}: page_size="
-              f"{sched.page_size}, prefill_chunk={sched.prefill_chunk}, "
-              f"{sched.n_pages} pages ({sched.n_pages - 1} allocatable + "
-              f"trash); prefix cache "
-              f"{'on' if sched.prefix is not None else 'off'}")
+        if sched.paged:
+            print(f"[serve] block-paged KV on {device}: page_size="
+                  f"{sched.page_size}, prefill_chunk={sched.prefill_chunk}, "
+                  f"{sched.n_pages} pages ({sched.n_pages - 1} allocatable "
+                  f"+ trash); prefix cache "
+                  f"{'on' if sched.prefix is not None else 'off'}")
+        else:
+            print(f"[serve] contiguous slot KV on {device}: {args.slots} "
+                  f"slots of {args.max_len}, admission prefill width "
+                  f"{args.prefill_len or 'locked at the first admission'}")
     else:
         if (args.router != "fifo" or weights or args.tenant_cap is not None
-                or args.prefix_cache is not None):
+                or args.prefix_cache is not None
+                or args.prefill_len is not None):
             raise SystemExit("--router/--tenant-weights/--tenant-cap/"
-                             "--prefix-cache belong to the continuous "
-                             "batcher; add --continuous")
+                             "--prefix-cache/--prefill-len belong to the "
+                             "continuous batcher; add --continuous")
         sched = BatchScheduler(eng, bucket_size=args.slots)
         print(f"[serve] bucketed batching on {device}: buckets of "
               f"{args.slots}, contiguous KV of {args.max_len}")
@@ -173,9 +186,10 @@ def main(argv=None):
     print(f"[serve] continuous: {sched.prefills} prefills, "
           f"{sched.chunk_calls} chunk calls, {sched.decode_steps} decode "
           f"steps, {occ:.2f} tokens/step occupancy")
-    print(f"[serve] pages: {s['pages_in_use']} private + "
-          f"{s['pages_shared']} shared in use, {s['pages_free']} free "
-          f"(peak {s['pages_peak_in_use']} of {s['pages_allocatable']})")
+    if sched.paged:
+        print(f"[serve] pages: {s['pages_in_use']} private + "
+              f"{s['pages_shared']} shared in use, {s['pages_free']} free "
+              f"(peak {s['pages_peak_in_use']} of {s['pages_allocatable']})")
     return done
 
 

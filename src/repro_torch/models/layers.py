@@ -301,7 +301,8 @@ def _raceit_paged_decode(q, k_pool, v_pool, kv_len, scale, plan: ExecPlan,
     fn = (raceit_attention_decode_gqa_paged if gqa and sq == 1
           else raceit_attention_decode_paged)
     out = fn(qh, k_pool.float(), v_pool.float(), kv_len, block_table,
-             mask=mask, softmax_mode=plan.exec_cfg.softmax_mode)
+             mask=mask, softmax_mode=plan.exec_cfg.softmax_mode,
+             fold_scale=True)
     return out.transpose(1, 2)  # (B, Sq, H, hd)
 
 
@@ -407,9 +408,11 @@ def _write_contiguous(cache, k, v, sq: int):
 
     A scalar ``idx`` writes columns [idx, idx + sq) (clamped to the buffer
     as `dynamic_update_slice` clamps); a (B,) per-slot ``idx`` takes Sq=1
-    steps, each row at its own column; a prompt past the buffer keeps its
-    last L columns. The reference builds a new buffer; the port writes the
-    one it was given.
+    steps, each row at its own column, and a row whose index is past the
+    buffer (an empty slot that kept counting) writes nothing, as the
+    reference's scatter drops it; a prompt past the buffer keeps its last L
+    columns. The reference builds a new buffer; the port writes the one it
+    was given.
     """
     ck, cv = cache["k"], cache["v"]
     idx = cache["idx"]
@@ -421,8 +424,13 @@ def _write_contiguous(cache, k, v, sq: int):
         if sq != 1:
             raise ValueError("per-slot caches only take Sq=1 decode steps")
         rows = torch.arange(ck.shape[0], device=ck.device)
-        ck.index_put_((rows, idx.long()), k[:, 0].to(ck.dtype))
-        cv.index_put_((rows, idx.long()), v[:, 0].to(cv.dtype))
+        pos = torch.clamp(idx.long(), max=L - 1)
+        live = (idx < L)[:, None, None]
+        # a dropped row writes back what its column held
+        ck.index_put_((rows, pos), torch.where(live, k[:, 0].to(ck.dtype),
+                                               ck[rows, pos]))
+        cv.index_put_((rows, pos), torch.where(live, v[:, 0].to(cv.dtype),
+                                               cv[rows, pos]))
     else:
         pos = torch.clamp(idx.long(), 0, L - sq)
         cols = pos + torch.arange(sq, device=ck.device)

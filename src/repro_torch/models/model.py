@@ -7,6 +7,9 @@ The port of the serving half of `repro.models.model`:
     cache = model.init_cache(batch, max_len)            # solo / buckets
     logits, cache = model.prefill(params, prompts, cache, pad_lens=None)
     logits, cache = model.decode_step(params, token, cache)
+    cache = model.init_slot_cache(n_slots, max_len)     # contiguous slots
+    logits, cache = model.decode_step(params, token, cache, slot_lens=...,
+                                      pad_lens=..., pad_prompt_len=...)
     cache = model.init_slot_cache(n_slots, max_len, page_size=64, n_pages=N)
     logits, cache = model.prefill_chunk(params, tokens, cache, offs, lens,
                                         block_table, page_size)
@@ -114,14 +117,21 @@ class Model:
     def init_slot_cache(self, n_slots: int, max_len: int, dtype=None,
                         page_size: Optional[int] = None,
                         n_pages: Optional[int] = None) -> list:
-        """A block-paged slot-pool cache: every attention layer gets an
-        (n_pages, page_size, KV, hd) pool shared by all slots (page 0 is the
-        trash page) and a (n_slots,) fill vector. ``max_len`` documents
-        intent; capacity follows the block table the caller threads in."""
-        if page_size is None or n_pages is None:
-            raise NotImplementedError(
-                "only block-paged slot caches are ported (pass page_size "
-                "and n_pages)")
+        """A slot-pool cache for continuous batching.
+
+        Without pages: `init_cache`'s (n_slots, max_len, KV, hd) buffers
+        with a (n_slots,) write index per layer, one per slot, so every row
+        fills and retires on its own. With ``page_size``/``n_pages``: every
+        attention layer gets an (n_pages, page_size, KV, hd) pool shared by
+        all slots (page 0 is the trash page) and a (n_slots,) fill vector;
+        ``max_len`` then documents intent, capacity follows the block table
+        the caller threads in."""
+        if page_size is None:
+            cache = self.init_cache(n_slots, max_len, dtype)
+            for layer in cache:
+                layer["attn"]["idx"] = torch.zeros(
+                    (n_slots,), dtype=torch.int32, device=self.device)
+            return cache
         return blocks.init_stack_cache(self.cfg, n_slots, max_len,
                                        self.device,
                                        dtype or self.compute_dtype,

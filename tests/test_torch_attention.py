@@ -133,7 +133,7 @@ def test_float_wrappers_within_reference_bound(entry, mode):
     t = torch.from_numpy
     got = tf(t(q), t(pk), t(pv), t(lens), t(bt),
              mask=None if mask is None else t(mask),
-             softmax_mode=mode).numpy()
+             softmax_mode=mode, fold_scale=True).numpy()
     live_v = max(np.abs(pv[bt[b, j], : min(PS, ln - j * PS)]).max()
                  for b, ln in enumerate(lens) for j in range(-(-ln // PS)))
     np.testing.assert_allclose(got, want, rtol=0, atol=2.0 ** -8 * live_v)
@@ -159,7 +159,8 @@ def test_float_wrappers_bit_equal(entry, mode):
                          softmax_mode=mode, fold_scale=True))
     t = torch.from_numpy
     got = tf(t(q), t(pk), t(pv), t(lens), t(bt),
-             mask=None if mask is None else t(mask), softmax_mode=mode)
+             mask=None if mask is None else t(mask), softmax_mode=mode,
+             fold_scale=True)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
