@@ -99,6 +99,22 @@ Phases, in order; any failure raises and the script exits non-zero:
             resident int8, through the paged batcher: 8 requests of 64..256
             tokens, 16 new; the paged launch count; the kernel against its
             plain version on a 2-layer run.
+13. gemma3 gemma3-4b at the reference's width, nothing cut (34 layers: 29
+            sliding-window layers with 1024-column ring caches and 5 global
+            ones; d 2560, 8 heads and 4 KV heads of 320, d_ff 10240, vocab
+            262144, RMSNorm, GELU-GLU, tied embeddings), resident int8 from
+            a seed, through the contiguous slot pool (8 slots, max_len 2048,
+            admission pinned at one window, 1024 tokens): 16 requests of
+            128..1024 prompt tokens, 64 new each; tokens/s, prefill and
+            decode ms, peak memory, the contiguous launch count (2 x 34 x
+            (prefills + decode steps)) and the first 8 requests again under
+            torch.profiler. Then: the kernels against their plain versions
+            on a 6-layer pool (one period, every ring wrapping) and on a
+            solo 1536-token prompt (the prefill past the ring and the band
+            over 1536 keys); the same float weights in digital mode, where
+            every request's pool tokens must be its solo `generate` tokens
+            (phase 11's near-tie rule); raceit_q8 against solo runs on 4
+            requests, counted, not held.
 
 Phase 9 also drives the float attention wrappers with the reference's
 default fold_scale=False at D 128 (the kernels divide by sqrt(d)), with
@@ -120,8 +136,13 @@ plan picks. Phase 3 also holds the division by sqrt(d) inside the kernels
 (D 32 and 128, every mode, paged decode and chunk, contiguous decode with
 per-group lengths, causal prefill at a q_offset, masked prefill, one tile),
 logits an ulp from a LOGIT rounding step where dividing and multiplying by
-the reciprocal part, and head dims 36 and 256. The build phase prints each
-kernel's registers, static shared memory and spills (`nvcc -Xptxas -v`).
+the reciprocal part, and head dims 36 and 256; and head dim 320, gemma3-4b's,
+in every mode at its serving shapes (the pool's admission prefill with the
+local and left-pad masks, a 1536-token solo prefill with the banded mask, the
+pool's GQA decode over a 1024-key ring and over 2048 keys) and in the paged
+and one-tile kernels. The build phase prints each kernel's registers, static
+shared memory and spills (`nvcc -Xptxas -v`), and each attention kernel's
+dynamic shared memory at D 320 from the launchers' own layout code.
 
 The line before the last is one JSON object describing every kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -354,15 +375,16 @@ def attention_bound_ms(c) -> tuple[float, str]:
 
 def contiguous_case(name, *, G, sq, sk, d, mode, kv_len=None, causal=False,
                     pad=None, heads=1, q_offset=0, lens=None,
-                    masked_rows=None, floor=None, sqrt_d=None, device="cuda",
-                    seed=SEED):
+                    masked_rows=None, floor=None, sqrt_d=None, window=None,
+                    device="cuda", seed=SEED):
     """Int8 operands of one contiguous call at a main-path shape. ``pad``
     (B,) left-pad lengths give one mask row per batch row of ``heads``
-    groups (causal on top when ``causal``); else ``causal`` is in-kernel
-    with ``q_offset``. ``lens`` gives a per-group kv_len vector (zeros are
-    zero-length groups), ``masked_rows`` a random mask with those rows
-    masked whole, ``floor`` a cmax floor, ``sqrt_d`` the call's
-    ``scale_by_sqrt_d``."""
+    groups (causal on top when ``causal``, and inside the last ``window``
+    keys of each row when ``window``: a local layer's banded mask); else
+    ``causal`` is in-kernel with ``q_offset``. ``lens`` gives a per-group
+    kv_len vector (zeros are zero-length groups), ``masked_rows`` a random
+    mask with those rows masked whole, ``floor`` a cmax floor, ``sqrt_d``
+    the call's ``scale_by_sqrt_d``."""
     gen = np.random.default_rng(seed)
     q = gen.integers(-128, 128, (G, sq, d), dtype=np.int8)
     k = gen.integers(-128, 128, (G, sk, d), dtype=np.int8)
@@ -374,8 +396,11 @@ def contiguous_case(name, *, G, sq, sk, d, mode, kv_len=None, causal=False,
         cols = np.arange(sk)[None, None, :]
         m = np.broadcast_to(cols >= np.asarray(pad)[:, None, None],
                             (len(pad), sq, sk))
+        rows = np.arange(sq)[None, :, None] + (sk - sq)
         if causal:
-            m = m & (cols <= np.arange(sq)[None, :, None] + (sk - sq))
+            m = m & (cols <= rows)
+        if window is not None:
+            m = m & (cols > rows - window)
         mask = t(np.array(m))  # a writable copy of the broadcast
         causal = False
     elif masked_rows is not None:
@@ -783,10 +808,57 @@ def wide_head_cases() -> list:
     ]
 
 
+def head_dim_320_cases(gen, mode) -> list:
+    """gemma3-4b's head dim 320 on its serving path (8 heads over 4 KV
+    heads, window 1024, the pool's 8 slots, max_len 2048): the pool's
+    admission prefill (G 8, 1024 x 1024, the local mask and a left-pad mask
+    together; at a pinned width of one window the band cuts nothing), a
+    solo prompt past the window (1536 x 1536, the banded mask alone, which
+    drops the keys a window behind each row), the pool's GQA decode (G 32 = 8 slots x 4 KV
+    heads, 2 query rows, per-group lengths with zeros) over a 1024-key ring
+    and over 2048 keys; then the paged decode and chunk and the one-tile
+    kernel at D 320, which gemma3-4b's path does not reach."""
+    d, tag = 320, f"D 320 {mode}"
+    ring = gen.integers(0, 1025, 32).tolist()
+    ring[3] = ring[17] = 0
+    ring[5] = 1024
+    full = gen.integers(0, 2049, 32).tolist()
+    full[9] = 0
+    slots, mp, ps = 8, 16, 64
+    return [
+        contiguous_case(f"gemma3 pool prefill local band + pad {tag}", G=8,
+                        sq=1024, sk=1024, d=d, mode=mode, heads=8,
+                        pad=[int(gen.integers(1, 896))], causal=True,
+                        window=1024),
+        contiguous_case(f"gemma3 solo prefill 1536 local band {tag}", G=8,
+                        sq=1536, sk=1536, d=d, mode=mode, heads=8, pad=[0],
+                        causal=True, window=1024),
+        contiguous_case(f"gemma3 pool decode ring 1024 lens {tag}", G=32,
+                        sq=2, sk=1024, d=d, mode=mode, lens=ring),
+        contiguous_case(f"gemma3 pool decode 2048 lens {tag}", G=32, sq=2,
+                        sk=2048, d=d, mode=mode, lens=full),
+        attention_case(f"paged decode {tag}", n_slots=slots, gps=4, sq=2,
+                       d=d, page_size=ps, max_pages=mp, mode=mode,
+                       lens=gen.integers(1, mp * ps + 1, slots).tolist()),
+        attention_case(f"paged chunk {tag}", n_slots=slots, gps=8, sq=64,
+                       d=d, page_size=ps, max_pages=mp, mode=mode,
+                       lens=gen.integers(64, mp * ps + 1, slots).tolist(),
+                       chunk_mask=True),
+        contiguous_case(f"one-tile gqa decode {tag}", G=4, sq=2, sk=512,
+                        d=d, mode=mode, lens=[512, 0, 301, 77]),
+    ]
+
+
 def phase_kernels(device_desc: str) -> list:
     gen = np.random.default_rng(SEED + 1)
     rows = []
     extra = []
+    for mode in ("pot", "pot_fine", "uniform"):
+        extra += head_dim_320_cases(gen, mode)
+    extra.append(contiguous_case(
+        "gemma3 pool decode ring 1024 D 320 sqrt-d", G=32, sq=2, sk=1024,
+        d=320, mode="pot", lens=gen.integers(0, 1025, 32).tolist(),
+        sqrt_d=320))
     for d in (32, 128):
         for mode in ("pot", "pot_fine", "uniform"):
             extra += sqrt_d_cases(gen, d, mode)
@@ -1739,11 +1811,12 @@ def build_model(name, n_layers=None, max_len=1024, quantize=True,
                             max_len=max_len, device=device), params
 
 
-def serve_pool(eng, requests, times=None):
-    """The contiguous slot pool of phase 11 on ``requests``: 8 slots,
-    admission prefill pinned at 512 tokens."""
+def serve_pool(eng, requests, times=None, prefill_len=512):
+    """The contiguous slot pool of phases 11 and 13 on ``requests``: 8
+    slots, admission prefill pinned at ``prefill_len`` tokens."""
     from repro_torch.serve import ContinuousBatcher
-    cb = ContinuousBatcher(eng, n_slots=8, paged=False, prefill_len=512)
+    cb = ContinuousBatcher(eng, n_slots=8, paged=False,
+                           prefill_len=prefill_len)
     for r in requests:
         cb.submit(r)
     if times is not None:
@@ -1756,6 +1829,15 @@ def serve_pool(eng, requests, times=None):
         if times is not None:
             untimed_engine(eng)
     return cb, time.perf_counter() - t0
+
+
+def pool_launches_check(counts: dict, n_layers: int, calls: int) -> None:
+    """The contiguous pool's launches: two a layer for every admission
+    prefill and decode step, none of the other two kernels."""
+    check(counts["acam_attention"] == 2 * n_layers * calls
+          and counts["acam_attention_paged"] == 0
+          and counts["acam_attention_single"] == 0,
+          f"{counts} attention launches for {calls} model calls")
 
 
 def solo_matches(eng, requests, done, margin=None) -> int:
@@ -1821,10 +1903,7 @@ def phase_contiguous_pool(device_desc: str) -> dict:
         check(done.error is None and len(done.result) == r.n_new == 32,
               f"request {r.rid}: {done.error or len(done.result)}")
     calls = cb.prefills + cb.decode_steps
-    check(counts["acam_attention"] == 2 * cfg.n_layers * calls
-          and counts["acam_attention_paged"] == 0
-          and counts["acam_attention_single"] == 0,
-          f"{counts} attention launches for {calls} model calls")
+    pool_launches_check(counts, cfg.n_layers, calls)
     tokens = sum(len(cb.done[r.rid].result) for r in requests)
     s = cb.summary()
     res = dict(tokens=tokens, seconds=secs, tokens_per_s=tokens / secs,
@@ -1959,6 +2038,187 @@ def phase_gqa_bias_paged(device_desc: str) -> dict:
     return res
 
 
+# ----------------------------------------------------------- phase 13
+
+GEMMA_WINDOW = 1024
+
+
+def count_parameters(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(count_parameters(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(count_parameters(v) for v in tree)
+    return tree.numel()
+
+
+def phase_gemma3_pool(device_desc: str) -> dict:
+    """gemma3-4b at its full width (34 layers: 29 sliding-window, 5 global;
+    d 2560, 8 heads and 4 KV heads of 320, d_ff 10240, vocab 262144, window
+    1024; nothing cut) through the contiguous slot pool: 8 slots, max_len
+    2048, admission pinned at one window (1024 tokens)."""
+    from repro_torch.configs.base import ExecConfig
+    from repro_torch.serve import GenerationEngine
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng, fparams = build_model("gemma3-4b", max_len=2048)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    cfg = eng.cfg
+    mixers = [cfg.layer_spec(i)[0] for i in range(cfg.n_layers)]
+    check((cfg.n_layers, mixers.count("attn_local"), cfg.d_model,
+           cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.d_ff,
+           cfg.vocab_size, cfg.window)
+          == (34, 29, 2560, 8, 4, 320, 10240, 262144, GEMMA_WINDOW),
+          "gemma3-4b is not at the reference's width")
+    n_params = count_parameters(fparams)
+    print("[gemma3] plan:\n" + eng.explain_plan(), flush=True)
+    pool = functools.partial(serve_pool, prefill_len=GEMMA_WINDOW)
+    pool(eng, trace(cfg, n_requests=1, lo=128, hi=128, n_new=2))  # warm
+    # prompts of 128..1024 tokens, 64 new: past 1024 columns the rings wrap
+    requests = trace(cfg, n_requests=16, lo=128, hi=1024, n_new=64)
+    times: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    launches = reset_launches()
+    cb, secs = pool(eng, requests, times)
+    counts = dict(launches)
+    for r in requests:
+        done = cb.done[r.rid]
+        check(done.error is None and len(done.result) == r.n_new == 64,
+              f"request {r.rid}: {done.error or len(done.result)}")
+    calls = cb.prefills + cb.decode_steps
+    pool_launches_check(counts, cfg.n_layers, calls)
+    tokens = sum(len(cb.done[r.rid].result) for r in requests)
+    # every slot holds 1024 + 64 columns, so every ring wraps (over its pad
+    # columns first); these requests' own tokens pass the window
+    wrapped = sum(len(r.prompt) + r.n_new > GEMMA_WINDOW for r in requests)
+    res = dict(tokens=tokens, seconds=secs, tokens_per_s=tokens / secs,
+               init_s=init_s, init_peak_gib=init_gib, parameters=n_params,
+               prefills=cb.prefills, decode_steps=cb.decode_steps,
+               decode_tokens=cb.decode_tokens,
+               model_calls=cb.summary()["model_calls"],
+               prefill_ms=1e3 * float(np.mean(times["prefill"])),
+               decode_ms=1e3 * float(np.mean(times["decode"])),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               prompt_lens=[len(r.prompt) for r in requests],
+               past_window_requests=wrapped, launches=counts)
+    print(f"[gemma3] gemma3-4b 34L (29 local, 5 global) d2560 8H/4KV of 320 "
+          f"d_ff 10240 vocab 262144 raceit_q8, {n_params / 1e9:.2f} B "
+          f"parameters (init {init_s:.1f} s, peak {init_gib:.2f} GiB), "
+          f"contiguous slot pool (8 slots, prefill_len 1024, max_len 2048): "
+          f"{tokens} tokens in {secs:.2f} s = {res['tokens_per_s']:.1f} "
+          f"tok/s; {cb.prefills} prefills (mean {res['prefill_ms']:.1f} ms),"
+          f" {cb.decode_steps} decode steps (mean {res['decode_ms']:.1f} "
+          f"ms), {cb.decode_tokens / cb.decode_steps:.2f} tokens a step; "
+          f"every ring wraps, and {wrapped} of {len(requests)} requests' "
+          f"own tokens pass the 1024-key window; peak memory {res['peak_mem_gib']:.2f} GiB; contiguous attention "
+          f"launches {counts['acam_attention']} = 2 x {cfg.n_layers} x "
+          f"{calls} ({device_desc})", flush=True)
+    few = trace(cfg, n_requests=8, lo=128, hi=1024, n_new=16)
+    res["profile"] = profile_run(
+        "the first 8 requests of the phase-13 trace, 16 new tokens each",
+        lambda: pool(eng, few),
+        lambda: pool(eng, trace(cfg, n_requests=1, lo=128, hi=128,
+                                n_new=2)),
+        {"acam_attention_paged": 0,
+         "acam_attention": 2 * cfg.n_layers * (8 + 15),
+         "acam_attention_single": 0}, top=10)
+    # raceit_q8 couples the pool's rows through whole-tensor quantizer
+    # scales, so its tokens are compared with solo runs, not held to them
+    # (the first 4 requests: a solo run of 34 layers takes some 10 s)
+    res["raceit_same_as_solo"] = solo_matches(eng, requests[:4], cb.done)
+    # the kernels against their plain versions: a 6-layer pool (one
+    # period: 5 local, 1 global) with ring-wrapping requests, then a solo
+    # 1536-token prompt (the sq >= L prefill and the band over 1536 keys)
+    short = shallow(eng, 6)
+    wrap = trace(cfg, n_requests=4, lo=900, hi=1024, n_new=160)
+    cb_k, _ = pool(short, wrap)
+    cb_p, _ = swapped_to_plain(lambda: pool(short, wrap))
+    for r in wrap:
+        got, want = cb_k.done[r.rid].result.tolist(), \
+            cb_p.done[r.rid].result.tolist()
+        check(got == want, f"6-layer pool request {r.rid}: kernel {got} != "
+                           f"plain {want}")
+    long_p = trace(cfg, n_requests=1, lo=1536, hi=1536, n_new=8)[0].prompt
+    launches = reset_launches()
+    solo_k = short.generate(long_p[None], 8)[0].tolist()
+    check(launches["acam_attention"] == 2 * 6 * 8,
+          f"{dict(launches)} launches for the 1536-token solo run")
+    solo_p = swapped_to_plain(lambda: short.generate(long_p[None], 8))[0]
+    check(solo_k == solo_p.tolist(),
+          f"1536-token solo run: kernel {solo_k} != plain {solo_p.tolist()}")
+    del eng, short
+    torch.cuda.empty_cache()
+    # digital greedy on the same float weights: the pool's tokens are a
+    # solo run's while the pinned width is at most the window
+    deng = GenerationEngine(cfg, fparams, ExecConfig(mode="digital"),
+                            max_len=2048, device=DEVICE)
+    fresh = lambda: trace(cfg, n_requests=16, lo=128, hi=1024, n_new=64)
+    cb_d, _ = pool(deng, fresh())
+    res["digital_same_as_solo"] = solo_matches(deng, fresh(), cb_d.done,
+                                               margin=1e-3)
+    print(f"[gemma3] kernels equal to plain attention on a 6-layer pool ("
+          f"{len(wrap)} requests of {[len(r.prompt) for r in wrap]} tokens "
+          f"and 160 new, every ring wrapping) and on a 1536-token solo "
+          f"prompt; digital pool: {res['digital_same_as_solo']} of "
+          f"{len(requests)} requests equal to their solo runs (the rest "
+          f"part at a near tie); raceit_q8 pool: "
+          f"{res['raceit_same_as_solo']} of 4 equal to solo runs (not held: "
+          f"whole-tensor scales couple the slots) ({device_desc})",
+          flush=True)
+    del deng, fparams
+    torch.cuda.empty_cache()
+    return res
+
+
+SMEM_PER_BLOCK = 232448  # bytes of shared memory one H100 block may use
+
+
+def smem_report(device_desc: str, d: int = 320) -> list:
+    """Each attention kernel's dynamic shared memory at head dim ``d``, from
+    the launchers' own layout code: the contiguous kernels at gemma3-4b's
+    four main-path shapes, the one-tile kernel at the largest shape its
+    rule takes (8 groups, 256 rows, 512 keys, masked) and the paged kernels
+    at a masked 64-row chunk. Each must fit one block."""
+    import ctypes
+    from repro_torch.kernels import acam_attention as A
+    from repro_torch.kernels.build import bind
+    I = ctypes.c_int
+    cfn = bind("acam_attention", "acam_attention_contiguous_smem", [I] * 10)
+    pfn = bind("acam_attention", "acam_attention_paged_smem", [I] * 10)
+    sfn = bind("acam_attention_single", "acam_attention_single_smem", [I] * 8)
+    rows = []
+    for what, G, sq, sk in (("pool prefill", 8, 1024, 1024),
+                            ("solo prefill", 8, 1536, 1536),
+                            ("pool decode ring", 32, 2, 1024),
+                            ("pool decode", 32, 2, 2048)):
+        bk = A.key_block(sk)
+        plan = A.contiguous_plan(G, sq, sk, bk)
+        for pass_id, kernel in ((0, "contiguous_sums"),
+                                (1, "contiguous_probv")):
+            rows.append(dict(kernel=kernel, shape=f"{what} G {G} {sq} x {sk}",
+                             bytes=cfn(pass_id, G, sq, sk, d, bk, 1,
+                                       plan.splits, plan.per, plan.psp)))
+    G, sq, sk = 8, 256, 512
+    plan = A.single_plan(G, sq, sk)
+    rows.append(dict(kernel="single_tile", shape=f"G {G} {sq} x {sk}",
+                     bytes=sfn(G, sq, sk, d, A.key_block(sk), 1, plan.splits,
+                               plan.per)))
+    pp = A.paged_plan(64, 64, 16, 64)
+    for pass_id, kernel in ((0, "paged_sums"), (1, "paged_probv")):
+        rows.append(dict(kernel=kernel, shape="chunk G 64 64 rows, 16 pages "
+                                              "of 64",
+                         bytes=pfn(pass_id, 64, 64, d, 64, 16, 1, pp.splits,
+                                   pp.pages_per_split, pp.key_tile)))
+    for r in rows:
+        print(f"[build] D {d} {r['kernel']} ({r['shape']}, masked): "
+              f"{r['bytes']} bytes dynamic shared memory of "
+              f"{SMEM_PER_BLOCK} a block may use ({device_desc})", flush=True)
+        check(0 < r["bytes"] <= SMEM_PER_BLOCK,
+              f"{r['kernel']} takes {r['bytes']} bytes at D {d}")
+    return rows
+
+
 def ptxas_report(log: str) -> list:
     """Per kernel of an `nvcc -Xptxas -v` log: registers, static shared
     memory and spill bytes."""
@@ -2055,30 +2315,48 @@ def main() -> None:
                   f"{r['spill_stores']} / {r['spill_loads']} bytes spill "
                   f"stores / loads", flush=True)
 
-    t_start = time.perf_counter()
+    smem_rows = smem_report(desc)
+
+    t_start = last = time.perf_counter()
+    laps = {}
+
+    def lap(name):  # seconds since the last lap, by phase
+        nonlocal last
+        now = time.perf_counter()
+        laps[name] = now - last
+        last = now
+
     kernel_rows = phase_kernels(desc)
     new_rows = phase_kernels_new(desc)
     sweep_rows = phase_split_sweep(desc)
+    lap("3 kernels")
     main_res, eng = phase_main(desc)
     prof_res = phase_profile(eng, main_res)
     del eng
     phase_agree()
     torch.cuda.empty_cache()
+    lap("4-5 paged")
     bucket_res, gpt2 = phase_bucketed(desc)
     solo_res, command_r = phase_solo(desc)
     prof2_res = phase_profile_contiguous(gpt2, command_r)
     phase_agree_contiguous(gpt2, command_r)
     del command_r
     torch.cuda.empty_cache()
+    lap("6-8 bucketed, solo")
     api_res = phase_kernel_api(desc)
     sqrt_d_res = phase_sqrt_d_api(desc)
     staged_res = phase_staged(gpt2, desc)
     del gpt2
     torch.cuda.empty_cache()
+    lap("9-10 api, staged")
     pool_res = phase_contiguous_pool(desc)
+    lap("11 pool")
     gqa_res = phase_gqa_bias_paged(desc)
-    print(f"[time] phases 3 to 12: {time.perf_counter() - t_start:.1f} s",
-          flush=True)
+    lap("12 gqa-paged")
+    gemma_res = phase_gemma3_pool(desc)
+    lap("13 gemma3")
+    print(f"[time] phases 3 to 13: {time.perf_counter() - t_start:.1f} s; "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in laps.items()), flush=True)
 
     # each kernel's headline: its main-path decode shape in mode pot
     heads = {"acam_attention_paged": "gpt2-large decode pot",
@@ -2093,7 +2371,8 @@ def main() -> None:
                     + gqa_res["launches"]["acam_attention_paged"]),
                 "acam_attention": (bucket_res["launches"]["acam_attention"]
                                    + solo_res["launches"]["acam_attention"]
-                                   + pool_res["launches"]["acam_attention"]),
+                                   + pool_res["launches"]["acam_attention"]
+                                   + gemma_res["launches"]["acam_attention"]),
                 "acam_attention_single":
                     solo_res["launches"]["acam_attention_single"]}
     kernels = []
@@ -2135,7 +2414,9 @@ def main() -> None:
                                     "sqrt_d_api": sqrt_d_res,
                                     "staged": staged_res,
                                     "contiguous_pool": pool_res,
-                                    "gqa_bias_paged": gqa_res}),
+                                    "gqa_bias_paged": gqa_res,
+                                    "gemma3_pool": gemma_res,
+                                    "smem_d320": smem_rows}),
           flush=True)
     print(desc, flush=True)
     print(json.dumps({"kernels": kernels}))

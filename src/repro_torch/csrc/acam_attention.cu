@@ -456,7 +456,8 @@ __global__ void __launch_bounds__(kPThreads) paged_probv(PParams p) {
   const bool mma_warp = rt * 16 < s.nr;
   const int ndt = (D + 7) / 8;
   // one sweep over the pages for every 16 x wpr output tiles of 8 columns:
-  // one sweep up to D 128, two at D 256 when a warp has a row tile alone
+  // one sweep up to D 128, two at D 256 and three at D 320 when a warp
+  // has a row tile alone
   for (int d0 = 0; d0 < ndt; d0 += 16 * wpr) {
     if (d0 > 0) {  // the last sweep's copies and reads are done
       cp_async_wait<0>();
@@ -561,7 +562,31 @@ size_t smem_paged_probv(const PParams& p) {
          + sizeof(int) * (256 + p.rows + p.pages_per_split);
 }
 
+// the shape fields of a paged launch (the layouts above read these)
+void paged_shape(PParams& p, int G, int Sq, int D, int page_size,
+                 int max_pages, int splits, int pages_per_split, int kt) {
+  p.G = G; p.Sq = Sq; p.D = D; p.dp = (D + 31) & ~31;
+  p.page_size = page_size; p.max_pages = max_pages;
+  p.row_tiles = (Sq + kPRows - 1) / kPRows;
+  p.rows = min(kPRows, (Sq + 15) / 16 * 16);
+  p.splits = splits; p.pages_per_split = pages_per_split; p.kt = kt;
+}
+
 }  // namespace
+
+// The dynamic shared memory (bytes) one pass of the paged layout takes at
+// these shapes, from the layout the launch uses; `masked` says whether a mask
+// is given.
+extern "C" int acam_attention_paged_smem(int pass, int G, int Sq, int D,
+                                         int page_size, int max_pages,
+                                         int masked, int splits,
+                                         int pages_per_split, int kt) {
+  PParams p = {};
+  int cell = 0;
+  p.mask = masked ? reinterpret_cast<const int8_t*>(&cell) : nullptr;
+  paged_shape(p, G, Sq, D, page_size, max_pages, splits, pages_per_split, kt);
+  return (int)(pass == 0 ? smem_paged_sums(p) : smem_paged_probv(p));
+}
 
 // Launch one pass of the paged layout (0 = A, 1 = B) on `stream`; returns
 // the CUDA error code. The split and the scratch come from
@@ -601,12 +626,9 @@ extern "C" int acam_attention_paged_launch(
   p.codes = static_cast<int8_t*>(codes);
   p.lsh = static_cast<int*>(lsh);
   p.cells = static_cast<int*>(cells);
-  p.G = G; p.Sq = Sq; p.D = D; p.dp = (D + 31) & ~31;
-  p.page_size = page_size; p.max_pages = max_pages; p.gps = gps;
-  p.row_tiles = (Sq + kPRows - 1) / kPRows;
-  p.rows = min(kPRows, (Sq + 15) / 16 * 16);
-  p.splits = splits; p.pages_per_split = pages_per_split;
-  p.kt = kt; p.psp = psp;
+  paged_shape(p, G, Sq, D, page_size, max_pages, splits, pages_per_split, kt);
+  p.gps = gps;
+  p.psp = psp;
   p.pot = PotConsts{e_min, step_scale, safe_min, thr};
   p.frac_shift = frac_shift;
 
@@ -628,6 +650,24 @@ extern "C" int acam_attention_paged_launch(
     paged_probv<<<grid, kPThreads, smem, st>>>(p);
   }
   return (int)cudaGetLastError();
+}
+
+// The dynamic shared memory (bytes) one pass of the contiguous layout takes
+// at these shapes (acam_contiguous.cuh c_layout), or -1 for a shape the
+// kernels do not take; `masked` says whether a mask is given.
+extern "C" int acam_attention_contiguous_smem(int pass, int G, int Sq,
+                                              int Sk, int D, int bk,
+                                              int masked, int splits,
+                                              int per, int psp) {
+  CParams p;
+  int cell = 0;
+  void* c = &cell;
+  if (!contiguous_params(p, c, c, c, c, masked ? c : nullptr, 1, c, 0.0f,
+                         nullptr, 0, c, c, c, c, c, c, c, c, c, G, Sq, Sk, D,
+                         bk, 0, 0, splits, per, psp, 0.0f, 1.0f, 0.0f, 0.0f,
+                         0))
+    return -1;
+  return c_layout(p, pass == 0 ? 0 : 1).total;
 }
 
 // Launch one pass (0 = A, 1 = B) of the contiguous layout on `stream`;

@@ -80,6 +80,24 @@ __global__ void __launch_bounds__(32 * kSWarps) single_tile(CParams p) {
 
 }  // namespace
 
+// The dynamic shared memory (bytes) of a one-tile launch at these shapes
+// (acam_contiguous.cuh c_layout kind 2), or -1 for a shape the kernel does
+// not take; `masked` says whether a mask is given.
+extern "C" int acam_attention_single_smem(int G, int Sq, int Sk, int D,
+                                          int skp, int masked, int splits,
+                                          int per) {
+  CParams p;
+  int cell = 0;
+  void* c = &cell;
+  if (G > 8 || Sq > 256 || skp < Sk || skp > 512 ||
+      !contiguous_params(p, c, c, c, c, masked ? c : nullptr, 1, c, 0.0f,
+                         nullptr, 0, c, c, c, c, c, c, nullptr, c, c, G, Sq,
+                         Sk, D, skp, 0, 0, splits, per, 0, 0.0f, 1.0f, 0.0f,
+                         0.0f, 0))
+    return -1;
+  return c_layout(p, 2).total;
+}
+
 // Launch the one-tile kernel on `stream`; returns the CUDA error code. The
 // split comes from kernels/acam_attention.py single_plan; cells holds
 // 2 + G * ceil(Sq / 64) zeroed ints, the first seeded with cmax_floor.

@@ -13,10 +13,15 @@ constexpr int kLogitMin = -128;
 constexpr int kLogitMax = 127;
 constexpr int kRun = 32;  // XLA's CPU reduction adds keys in runs of 32
 // the widest head dim the attention kernels take (a multiple of 4; the
-// wrappers pad narrower odd dims with zero codes). q fragments of the first
-// 128 dims stay in registers, the rest are read from shared memory; PROB . V
-// sweeps the keys once for every 16 x (warps a row tile) output tiles.
-constexpr int kMaxD = 256;
+// wrappers pad narrower odd dims with zero codes): 320, gemma3-4b's
+// d_model / n_heads. q fragments of the first 128 dims stay in registers,
+// the rest are read from shared memory; PROB . V sweeps the keys once for
+// every 16 x (warps a row tile) output tiles (three sweeps at D 320 where a
+// warp has a row tile alone). At D 320 the largest block layout, the
+// one-tile kernel's with a mask and a span of a whole key block, takes
+// 194,048 bytes of dynamic shared memory (acam_contiguous.cuh c_layout),
+// under the 232,448 a block may use.
+constexpr int kMaxD = 320;
 
 // float32 log as XLA's CPU backend evaluates it (Cephes logf, FMA-contracted)
 __device__ __forceinline__ float ref_logf(float x) {

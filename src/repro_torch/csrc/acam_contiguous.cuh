@@ -467,7 +467,8 @@ __device__ __forceinline__ void contiguous_pass_b(const CParams& p,
   const bool mma_warp = rt * 16 < s.nr;
   const int ndt = (D + 7) / 8;
   // one sweep over the keys for every 16 x wpr output tiles of 8 columns:
-  // one sweep up to D 128, two at D 256 when a warp has a row tile alone
+  // one sweep up to D 128, two at D 256 and three at D 320 when a warp
+  // has a row tile alone
   for (int d0 = 0; d0 < ndt; d0 += 16 * wpr) {
     if (d0 > 0) {  // the last sweep's copies and reads are done
       cp_async_wait<0>();

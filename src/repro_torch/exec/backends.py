@@ -2,8 +2,9 @@
 
 The port of `repro.exec.backends`, restricted to what
 ``ExecConfig.serving()`` (fused or staged attention) and the digital
-baseline resolve on a decoder-only all-attention model, served paged,
-bucketed or solo: matmul ``digital``/``raceit_int`` (resident int8 weights
+baseline resolve on a decoder-only stack of global and sliding-window
+attention layers, served paged, from the contiguous slot pool, bucketed or
+solo: matmul ``digital``/``raceit_int`` (resident int8 weights
 go through `_resident_matmul` in both), activation ``digital``/
 ``raceit_lut``, softmax ``digital``/``raceit_acam``, dd_matmul ``int``,
 attention_prefill ``digital``/``raceit_staged``/``raceit_fused``, the
@@ -175,12 +176,16 @@ def _dd_matmul_int(plan, a_codes, b_codes):
 # ---------------------------------------------------------------------------
 # Interface: impl(plan, q, k, v, *, scale, q_offset, kind, window, chunk,
 #   probs_dtype, pad_lens); q (B, Sq, H, hd); k/v (B, Sk, KV, hd); kind in
-#   ("bidir", "causal") here; pad_lens (B,) int32 marks each row's left-pad
-#   key prefix (bucketed serving), masked on top of the structural mask.
+#   ("bidir", "local", "causal") here; pad_lens (B,) int32 marks each row's
+#   left-pad key prefix (bucketed serving), masked on top of the structural
+#   mask.
 
 def _mask_fn(kind: str, sk: int, q_offset, window: int):
     if kind == "bidir":
         return lambda qi, ki: ki < sk + 0 * qi
+    if kind == "local":  # causal sliding window
+        return lambda qi, ki: ((ki <= qi + q_offset)
+                               & (ki > qi + q_offset - window))
     if kind == "causal":
         return lambda qi, ki: ki <= qi + q_offset
     raise NotImplementedError(f"mask kind {kind!r} is not ported yet")
@@ -203,7 +208,14 @@ def _prefill_digital(plan, q, k, v, *, scale, q_offset, kind, window, chunk,
                      probs_dtype=None, pad_lens=None):
     if probs_dtype is None:
         probs_dtype = layers._probs_dtype(plan.model_cfg)
-    sk = k.shape[1]
+    sq, sk = q.shape[1], k.shape[1]
+    if (kind == "local" and sq == sk and sq % window == 0 and sq > window
+            and pad_lens is None):
+        # sliding-window layers, single-shot prefill: q-blocked 2W-key
+        # attention (the blocked form has no per-row mask, so padded
+        # buckets take the chunked path below)
+        return layers._local_block_attention(q, k, v, window, scale,
+                                             probs_dtype)
     mask_fn = _mask_fn(kind, sk, q_offset, window)
     return layers._chunked_attention(q, k, v, mask_fn, min(chunk, sk), scale,
                                      probs_dtype, pad_lens=pad_lens)

@@ -25,8 +25,8 @@ kernel or raises, a CPU tensor runs the plain version. The CPU tests hold
 the plain versions bit for bit against the Pallas kernels, and the chip
 check holds each CUDA kernel against its plain version. ``scale_by_sqrt_d``
 divides the logits by sqrt(d) in every layout as the reference does
-(`sqrt_d_rule`); the CUDA kernels take head dims up to 256, padded to a
-multiple of 4 with zero codes.
+(`sqrt_d_rule`); the CUDA kernels take head dims up to 320 (gemma3-4b's),
+padded to a multiple of 4 with zero codes.
 
 Row coupling is part of the function, as in the reference: the call-wide
 cmax requantizes every row of the call, including the pad rows of slots that
@@ -591,7 +591,7 @@ def _check_operands(named, dev):
 
 # the CUDA kernels' widest head dim (a multiple of 4; narrower dims that
 # are not pad with zero codes, `_padded_to_4`)
-CUDA_MAX_HEAD_DIM = 256
+CUDA_MAX_HEAD_DIM = 320
 
 
 def _padded_to_4(impl, n_int8: int):

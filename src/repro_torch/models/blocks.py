@@ -1,7 +1,10 @@
 """The layer stack: one parameter dict per layer, a Python loop over layers.
 
-The port of `repro.models.blocks` for decoder-only global-attention stacks
-with dense FFNs, over contiguous or block-paged KV caches. The reference stacks each period position's parameters
+The port of `repro.models.blocks` for decoder-only stacks of global
+(``attn``) and sliding-window (``attn_local``) attention layers with dense
+FFNs, over contiguous KV caches of two lengths (max_len columns for global
+layers, a ring of min(max_len, window) for local ones) or block-paged pools
+(global layers only). The reference stacks each period position's parameters
 along a scan dimension (`blocks.init_stack`); the port keeps a plain list
 of per-layer dicts in layer order (`repro_torch.ckpt` unstacks the
 reference's layout) and runs the layers in a Python loop in place of
@@ -22,10 +25,11 @@ Params = dict
 
 
 def _check_layer(cfg: ModelConfig, mixer: str, ffn_kind: str) -> None:
-    if mixer != "attn" or ffn_kind != "dense":
+    if mixer not in ("attn", "attn_local") or ffn_kind != "dense":
         raise NotImplementedError(
             f"layer kind ({mixer}, {ffn_kind}) is not ported yet; the port "
-            f"serves decoder-only global-attention stacks with dense FFNs")
+            f"serves decoder-only attention stacks (global and local) with "
+            f"dense FFNs")
 
 
 def init_layer(gen, cfg: ModelConfig, mixer: str, ffn_kind: str, device,
@@ -50,6 +54,7 @@ def apply_layer(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
     h = layers.apply_norm(p["norm1"], x, cfg)
     m, new_cache = layers.attention(
         p["attn"], h, cfg=cfg, plan=plan, positions=positions,
+        local=(mixer == "attn_local"),
         cache=cache["attn"] if cache else None, pad_lens=pad_lens,
         pad_prompt_len=pad_prompt_len, slot_lens=slot_lens,
         block_table=block_table, page_size=page_size, chunk_offs=chunk_offs)
@@ -64,23 +69,32 @@ def init_layer_cache(cfg: ModelConfig, mixer: str, batch: int, max_len: int,
                      n_pages: Optional[int] = None) -> Params:
     """One layer's decode cache.
 
-    Contiguous: k/v (batch, max_len, KV, hd) and a scalar write index.
-    Block-paged (``page_size``/``n_pages``): k/v are an (n_pages, page_size,
-    KV, hd) pool shared by every slot and ``idx`` is the (batch,) per-slot
-    fill; ``max_len`` then only documents intent.
+    Contiguous: k/v (batch, L, KV, hd) and a scalar write index, with L =
+    max_len for a global layer and a ring of L = min(max_len, window) for a
+    local one, so one stack's caches come in two lengths. Block-paged
+    (``page_size``/``n_pages``, global layers only): k/v are an (n_pages,
+    page_size, KV, hd) pool shared by every slot and ``idx`` is the
+    (batch,) per-slot fill; ``max_len`` then only documents intent.
     """
-    if mixer != "attn":
+    if mixer not in ("attn", "attn_local"):
         raise NotImplementedError(
-            f"KV caches cover global attention layers only; mixer {mixer!r} "
-            f"is not ported")
+            f"KV caches cover attention layers only; mixer {mixer!r} is not "
+            f"ported")
     hd = cfg.resolved_head_dim
     if page_size is not None:
+        if mixer != "attn":
+            raise NotImplementedError(
+                f"block-paged caches cover global attention layers only; "
+                f"mixer {mixer!r} keeps its own state layout (serve "
+                f"contiguous for this config)")
         if n_pages is None:
             raise ValueError("paged caches need n_pages")
         shape = (n_pages, page_size, cfg.n_kv_heads, hd)
         idx = torch.zeros((batch,), device=device, dtype=torch.int32)
     else:
-        shape = (batch, max_len, cfg.n_kv_heads, hd)
+        # local layers keep a ring buffer of window size
+        length = min(max_len, cfg.window) if mixer == "attn_local" else max_len
+        shape = (batch, length, cfg.n_kv_heads, hd)
         idx = torch.zeros((), device=device, dtype=torch.int32)
     return {"attn": {
         "k": torch.zeros(shape, device=device, dtype=dtype),

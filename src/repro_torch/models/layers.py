@@ -1,16 +1,19 @@
 """Transformer building blocks: norms, positions, attention, FFN.
 
-The port of `repro.models.layers` for decoder-only global-attention stacks.
-Parameters are plain dicts of tensors, one dict per layer, and every layer
-call dispatches through the resolved `repro_torch.exec.ExecPlan` exactly as
-the reference does. Attention covers both KV caches of the reference:
+The port of `repro.models.layers` for decoder-only stacks of global and
+sliding-window (local) attention layers. Parameters are plain dicts of
+tensors, one dict per layer, and every layer call dispatches through the
+resolved `repro_torch.exec.ExecPlan` exactly as the reference does.
+Attention covers both KV caches of the reference:
 
-* the contiguous cache (B, max_len, KV, hd) with a scalar (or per-slot)
-  write index: whole-prompt prefill, with left-padded buckets masked per
-  row, and the Sq=1 decode step against the valid prefix;
-* the block-paged pool: the Sq=1 decode step and the chunked-prefill step,
-  with the page-table kernels for paged backends and the gather degrade
-  for every other backend.
+* the contiguous cache (B, L, KV, hd) with a scalar (or per-slot) write
+  index: whole-prompt prefill, with left-padded buckets masked per row, and
+  the Sq=1 decode step against the valid prefix. Global layers keep L =
+  max_len columns; local layers keep a ring of L = min(max_len, window)
+  columns, written at ``idx % L``;
+* the block-paged pool (global layers only): the Sq=1 decode step and the
+  chunked-prefill step, with the page-table kernels for paged backends and
+  the gather degrade for every other backend.
 """
 from __future__ import annotations
 
@@ -193,6 +196,40 @@ def _chunked_attention(q, k, v, mask_fn, chunk: int, scale: float,
                       acc / torch.clamp_min(l, 1e-30)[..., None],
                       torch.zeros((), device=dev))
     return out.transpose(1, 2)  # (B, Sq, H, hd)
+
+
+def _local_block_attention(q, k, v, window: int, scale: float, probs_dtype):
+    """Sliding-window attention in q-blocks: each W-token block attends only
+    its own and the previous KV block (2W keys instead of S), the
+    reference's digital path for local layers.
+
+    q: (B, S, H, hd); k/v: (B, S, KV, hd); requires S % window == 0.
+    """
+    B, S, H, hd = q.shape
+    kv = k.shape[2]
+    rep = H // kv
+    W = window
+    nb = S // W
+    dev = q.device
+    qb = (q.float() * scale).reshape(B, nb, W, H, hd)
+    kb = k.reshape(B, nb, W, kv, hd)
+    vb = v.reshape(B, nb, W, kv, hd)
+    pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, 0, 1, 0))[:, :nb]
+    kcat = torch.cat([pad(kb), kb], dim=2).repeat_interleave(rep, dim=3)
+    vcat = torch.cat([pad(vb), vb], dim=2).repeat_interleave(rep, dim=3)
+    s = torch.einsum("bnwhd,bnchd->bnhwc", qb, kcat.float())
+    # causal + window; block 0 has no previous block
+    qpos = torch.arange(W, device=dev)[:, None]
+    kpos = (torch.arange(2 * W, device=dev) - W)[None, :]
+    base = (kpos <= qpos) & (kpos > qpos - W)  # (W, 2W)
+    blk0 = base & (kpos >= 0)
+    mask = torch.where((torch.arange(nb, device=dev) == 0)[:, None, None],
+                       blk0[None], base[None])
+    s = torch.where(mask[None, :, None], s,
+                    torch.full((), NEG_INF, dtype=s.dtype, device=dev))
+    p = torch.softmax(s, dim=-1).to(probs_dtype)
+    o = torch.einsum("bnhwc,bnchd->bnwhd", p, vcat.to(p.dtype)).float()
+    return o.reshape(B, S, H, hd)
 
 
 def _decode_quantize(q, k, v, kv_len, scale):
@@ -403,20 +440,22 @@ def _raceit_fused_attention(q, k, v, mask, scale, plan: ExecPlan,
     return out.reshape(b, h, sq, hd).transpose(1, 2)
 
 
-def _write_contiguous(cache, k, v, sq: int):
+def _write_contiguous(cache, k, v, sq: int, local: bool = False):
     """Write this call's k/v into a contiguous cache, in place.
 
-    A scalar ``idx`` writes columns [idx, idx + sq) (clamped to the buffer
-    as `dynamic_update_slice` clamps); a (B,) per-slot ``idx`` takes Sq=1
-    steps, each row at its own column, and a row whose index is past the
-    buffer (an empty slot that kept counting) writes nothing, as the
-    reference's scatter drops it; a prompt past the buffer keeps its last L
-    columns. The reference builds a new buffer; the port writes the one it
-    was given.
+    The write column is ``idx``, or ``idx % L`` in a local layer's ring of
+    L columns. A scalar index writes columns [pos, pos + sq), the start
+    clamped to the buffer as `dynamic_update_slice` clamps it; a (B,)
+    per-slot index takes Sq=1 steps, each row at its own column, and a
+    global layer's row whose index is past the buffer (an empty slot that
+    kept counting) writes nothing, as the reference's scatter drops it; a
+    prompt past the buffer keeps its last L columns. The reference builds a
+    new buffer; the port writes the one it was given.
     """
     ck, cv = cache["k"], cache["v"]
     idx = cache["idx"]
     L = ck.shape[1]
+    pos = idx.long() % L if local else idx.long()
     if sq >= L:
         ck.copy_(k[:, -L:].to(ck.dtype))
         cv.copy_(v[:, -L:].to(cv.dtype))
@@ -424,15 +463,15 @@ def _write_contiguous(cache, k, v, sq: int):
         if sq != 1:
             raise ValueError("per-slot caches only take Sq=1 decode steps")
         rows = torch.arange(ck.shape[0], device=ck.device)
-        pos = torch.clamp(idx.long(), max=L - 1)
-        live = (idx < L)[:, None, None]
+        live = (pos < L)[:, None, None]
+        pos = torch.clamp(pos, max=L - 1)
         # a dropped row writes back what its column held
         ck.index_put_((rows, pos), torch.where(live, k[:, 0].to(ck.dtype),
                                                ck[rows, pos]))
         cv.index_put_((rows, pos), torch.where(live, v[:, 0].to(cv.dtype),
                                                cv[rows, pos]))
     else:
-        pos = torch.clamp(idx.long(), 0, L - sq)
+        pos = torch.clamp(pos, 0, L - sq)
         cols = pos + torch.arange(sq, device=ck.device)
         ck.index_copy_(1, cols, k.to(ck.dtype))
         cv.index_copy_(1, cols, v.to(cv.dtype))
@@ -449,12 +488,15 @@ def attention(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
               chunk_offs: Optional[torch.Tensor] = None):
     """Self-attention with an optional KV cache, contiguous or block-paged.
 
-    Contiguous: ``cache = {"k": (B, Smax, KV, hd), "v": ..., "idx": ()
+    Contiguous: ``cache = {"k": (B, L, KV, hd), "v": ..., "idx": ()
     int32 or (B,)}``. A call with Sq > 1 is the prefill (through
-    ``plan.attention_prefill``, causal from column ``idx``); an Sq=1 call
-    is a decode step against the cache's valid prefix (through
+    ``plan.attention_prefill``, causal from column ``idx``, and with
+    ``local`` inside the last ``cfg.window`` keys); an Sq=1 call is a
+    decode step against the cache's valid prefix (through
     ``plan.attention_decode``), whose length is ``slot_lens`` when given,
-    else the post-write ``idx``. ``pad_lens`` (B,) marks left-pad prefixes
+    else the post-write ``idx``, capped at L. A local layer's cache is a
+    ring of L = min(max_len, window) columns: every column it holds is
+    inside the window. ``pad_lens`` (B,) marks left-pad prefixes
     of a bucket: prefill masks those keys per row, decode masks those
     cache slots; ``pad_prompt_len`` drops the decode pad mask of a layer
     whose buffer the prompt overflowed.
@@ -470,9 +512,6 @@ def attention(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
     rows, a degrade, never an error.
     """
     plan = as_plan(cfg, plan)
-    if local:
-        raise NotImplementedError("local/ring attention layers are not "
-                                  "ported yet")
     b, sq, _ = x.shape
     hd = cfg.resolved_head_dim
     q = _linear(x, p["wq"], plan, p.get("bq"))
@@ -490,6 +529,10 @@ def attention(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
     if paged:
         if page_size is None:
             raise ValueError("paged caches need a static page_size")
+        if local:
+            raise NotImplementedError(
+                "block-paged KV does not cover local/ring layers (a ring "
+                "overwrite would need page recycling inside a slot)")
         if cache is None:
             raise ValueError("block_table requires a self-attention KV cache")
         if slot_lens is None:
@@ -504,7 +547,7 @@ def attention(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
     else:
         new_cache = None
         if cache is not None:
-            new_cache = _write_contiguous(cache, k, v, sq)
+            new_cache = _write_contiguous(cache, k, v, sq, local)
             if sq == 1:  # decode attends through the cache
                 k, v = new_cache["k"], new_cache["v"]
         if sq == 1 and cache is not None:
@@ -526,7 +569,8 @@ def attention(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
                                       pad_valid=pad_valid)
         else:
             q_off = cache["idx"] if cache is not None else 0
-            kind = "causal" if cfg.causal else "bidir"
+            kind = ("bidir" if not cfg.causal
+                    else "local" if local else "causal")
             o = plan.attention_prefill(q, k, v, scale=scale, q_offset=q_off,
                                        kind=kind, window=cfg.window,
                                        chunk=chunk,

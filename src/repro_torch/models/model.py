@@ -109,8 +109,9 @@ class Model:
                 "blocks": blocks.init_stack(gen, cfg, dev, dt)}
 
     def init_cache(self, batch: int, max_len: int, dtype=None) -> list:
-        """A contiguous KV cache: (batch, max_len, KV, hd) buffers and a
-        scalar write index per layer."""
+        """A contiguous KV cache: (batch, L, KV, hd) buffers and a scalar
+        write index per layer; L is max_len for a global layer and
+        min(max_len, window) for a local layer's ring."""
         return blocks.init_stack_cache(self.cfg, batch, max_len, self.device,
                                        dtype or self.compute_dtype)
 
@@ -119,9 +120,10 @@ class Model:
                         n_pages: Optional[int] = None) -> list:
         """A slot-pool cache for continuous batching.
 
-        Without pages: `init_cache`'s (n_slots, max_len, KV, hd) buffers
-        with a (n_slots,) write index per layer, one per slot, so every row
-        fills and retires on its own. With ``page_size``/``n_pages``: every
+        Without pages: `init_cache`'s (n_slots, L, KV, hd) buffers (rings
+        for local layers) with a (n_slots,) write index per layer, one per
+        slot, so every row fills and retires on its own. With
+        ``page_size``/``n_pages`` (global-attention stacks only): every
         attention layer gets an (n_pages, page_size, KV, hd) pool shared by
         all slots (page 0 is the trash page) and a (n_slots,) fill vector;
         ``max_len`` then documents intent, capacity follows the block table

@@ -320,6 +320,6 @@ def test_cuda_head_dim_padding_is_exact(d):
     assert got[0].shape == (9, 3, d)
     np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
     assert int(got[1]) == int(want[1])
-    with pytest.raises(ValueError, match="up to 256"):
+    with pytest.raises(ValueError, match="up to 320"):
         TA._padded_to_4(plain, 3)(
-            *(torch.zeros((1, 1, 260), dtype=torch.int8),) * 3)
+            *(torch.zeros((1, 1, 324), dtype=torch.int8),) * 3)
