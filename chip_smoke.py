@@ -31,12 +31,13 @@ Phases, in order; any failure raises and the script exits non-zero:
             the paged continuous batcher: 8 slots, 64-token pages and chunks,
             16 requests of 64..512 prompt tokens and 32 new tokens each. The
             paged launch count must be 2 x 36 x (chunk calls + decode steps).
-   profile  phase 4's trace served again under torch.profiler: device
-            time by kernel over every model call, and the card's idle share
-            (1 - device busy time / wall time). torch.profiler can drop
-            launches; a trace whose attention launches differ from the
-            counters' is taken again once, and if it is short again the
-            phase reports its numbers as not measured.
+   profile  the first 4 requests of phase 4's trace, 8 new tokens each,
+            served again under torch.profiler: device time by kernel over
+            every model call, and the card's idle share (1 - device busy
+            time / wall time). torch.profiler can drop launches; a trace
+            whose attention launches differ from the counters' is taken
+            again once, and if it is short again the phase reports its
+            numbers as not measured.
 5. agree    the paged path at 4 layers with the kernel swapped for its plain
             version gives the same tokens.
 6. bucketed gpt2-large as in phase 4 served by BatchScheduler in left-padded
@@ -89,11 +90,12 @@ Phases, in order; any failure raises and the script exits non-zero:
             launch count (2 x 16 x (prefills + decode steps)) and the trace
             again under torch.profiler. Then: the kernels against their
             plain versions on a 4-layer pool (same tokens); the same float
-            weights in digital mode, where every request's pool tokens must
-            be its solo `generate` tokens (parting only at a near tie of
-            the solo logits, < 1e-3: batch-8 and batch-1 float sums);
-            raceit_q8 requests against their solo runs, counted, not held
-            (whole-tensor quantizer scales couple the slots).
+            weights in digital mode, where the first 4 requests' pool tokens
+            must be their solo `generate` tokens (parting only at a near tie
+            of the solo logits, < 1e-3: batch-8 and batch-1 float sums);
+            the first 4 raceit_q8 requests against their solo runs,
+            counted, not held (whole-tensor quantizer scales couple the
+            slots).
 12. gqa-paged  starcoder2-15b (GQA 48:4, qkv biases) at its published width
             cut to 8 of its 40 layers (float32 init of 40 is about 62 GB),
             resident int8, through the paged batcher: 8 requests of 64..256
@@ -112,9 +114,37 @@ Phases, in order; any failure raises and the script exits non-zero:
             on a 6-layer pool (one period, every ring wrapping) and on a
             solo 1536-token prompt (the prefill past the ring and the band
             over 1536 keys); the same float weights in digital mode, where
-            every request's pool tokens must be its solo `generate` tokens
-            (phase 11's near-tie rule); raceit_q8 against solo runs on 4
-            requests, counted, not held.
+            the first 4 requests' pool tokens must be their solo `generate`
+            tokens (phase 11's near-tie rule); raceit_q8 against solo runs
+            on 2 requests, counted, not held.
+14. moe pool  mixtral-8x22b at its published width (d 6144, 48 heads and 8
+            KV heads of 128, 8 experts of d_ff 16384, top-2, sliding window
+            4096, vocab 32768) cut to 4 of its 56 layers (float32 weights of
+            56 are about 562 GB, of 4 about 42 GB), resident int8 attention
+            and lm head with float32 experts (as the reference keeps them),
+            through the contiguous slot pool (8 slots, max_len 2048,
+            prefill_len 1024): 16 requests of 128..1024 tokens, 32 new;
+            tokens/s, prefill and decode ms, peak memory, the contiguous
+            launch count (2 x 4 x (prefills + decode steps)); one layer's
+            three expert products alone at the decode and the prefill
+            capacity, by CUDA events, beside their bound; the first 8
+            requests again under torch.profiler, with the expert bmm as one
+            row. Then: layer 0's router logits of a 1024-token prefill
+            routed on the card and on the CPU (expert ids, gates, kept
+            choices and slots equal bit for bit); the kernels against their
+            plain versions on a 2-layer pool (same tokens); digital pool
+            tokens against solo runs on the same float weights, counted,
+            not held (an expert's capacity counts pad rows and idle slots).
+15. moe paged  llama4-scout-17b-a16e at its published width (d 5120, 40
+            heads padded to 48 over 8 KV heads of 128, 16 experts of d_ff
+            8192, top-1, vocab 202048) cut to 4 of its 48 layers (about 43
+            GB), resident int8, through the paged batcher: 8 requests of
+            64..256 tokens, 16 new; the paged launch count (2 x 4 x (chunk
+            calls + decode steps)), tokens/s, step ms, peak memory, one
+            layer's expert products at decode; the kernel against its plain
+            version on a 2-layer run, every attention output finite (the
+            padded heads 40..47 too, which are multiplied by zero after the
+            kernel).
 
 Phase 9 also drives the float attention wrappers with the reference's
 default fold_scale=False at D 128 (the kernels divide by sqrt(d)), with
@@ -140,9 +170,14 @@ the reciprocal part, and head dims 36 and 256; and head dim 320, gemma3-4b's,
 in every mode at its serving shapes (the pool's admission prefill with the
 local and left-pad masks, a 1536-token solo prefill with the banded mask, the
 pool's GQA decode over a 1024-key ring and over 2048 keys) and in the paged
-and one-tile kernels. The build phase prints each kernel's registers, static
-shared memory and spills (`nvcc -Xptxas -v`), and each attention kernel's
-dynamic shared memory at D 320 from the launchers' own layout code.
+and one-tile kernels. Phase 3 also holds GQA at 6 query heads a KV head,
+the two MoE models', in every mode: the mixtral pool's decode (64 groups
+of 6 rows over 2048-key rings) and admission prefill (48 heads, 1024 x
+1024, local and left-pad masks), llama4-scout's paged GQA decode (8 slots
+x 8 groups, 6 rows) and flat 64-row paged chunk. The build phase prints
+each kernel's registers, static shared memory and spills (`nvcc -Xptxas
+-v`), and each attention kernel's dynamic shared memory at D 320 from the
+launchers' own layout code.
 
 The line before the last is one JSON object describing every kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -849,10 +884,45 @@ def head_dim_320_cases(gen, mode) -> list:
     ]
 
 
+def rep6_cases(gen, mode) -> list:
+    """GQA at 6 query heads a KV head, the two MoE models' (mixtral-8x22b
+    48:8, llama4-scout-17b-a16e 40 heads padded to 48 over 8), D 128: the
+    mixtral pool's decode (8 slots x 8 groups, 6 rows, 2048-key rings,
+    per-group lengths with zeros) and admission prefill (48 heads, 1024 x
+    1024, the local mask (window 4096) and a left-pad mask together), then
+    llama4's paged GQA decode (8 slots x 8 groups, 6 rows, 16 pages of 64
+    keys, a zero-length slot) and its flat paged chunk (48 heads a slot,
+    64 rows)."""
+    tag = f"rep 6 {mode}"
+    lens = gen.integers(0, 2049, 64).tolist()
+    lens[7] = lens[40] = 0
+    lens[12] = 2048
+    slots, mp, ps = 8, 16, 64
+    paged = gen.integers(1, mp * ps + 1, slots).tolist()
+    paged[2] = 0
+    return [
+        contiguous_case(f"mixtral pool decode 2048 lens {tag}", G=64, sq=6,
+                        sk=2048, d=128, mode=mode, lens=lens),
+        contiguous_case(f"mixtral pool prefill local + pad {tag}", G=48,
+                        sq=1024, sk=1024, d=128, mode=mode, heads=48,
+                        pad=[int(gen.integers(1, 896))], causal=True,
+                        window=4096),
+        attention_case(f"llama4 paged gqa decode {tag}", n_slots=slots,
+                       gps=8, sq=6, d=128, page_size=ps, max_pages=mp,
+                       mode=mode, lens=paged),
+        attention_case(f"llama4 paged chunk {tag}", n_slots=slots, gps=48,
+                       sq=64, d=128, page_size=ps, max_pages=mp, mode=mode,
+                       lens=gen.integers(64, mp * ps + 1, slots).tolist(),
+                       chunk_mask=True),
+    ]
+
+
 def phase_kernels(device_desc: str) -> list:
-    gen = np.random.default_rng(SEED + 1)
     rows = []
     extra = []
+    for mode in ("pot", "pot_fine", "uniform"):
+        extra += rep6_cases(np.random.default_rng(SEED + 18), mode)
+    gen = np.random.default_rng(SEED + 1)
     for mode in ("pot", "pot_fine", "uniform"):
         extra += head_dim_320_cases(gen, mode)
     extra.append(contiguous_case(
@@ -1258,30 +1328,22 @@ def phase_main(device_desc: str):
     return res, eng
 
 
-def phase_profile(eng, main: dict) -> dict:
-    """Phase 4's trace served again under torch.profiler: device time by
-    kernel over every model call, and the card's idle share, 1 - device
-    busy time / wall time, against this run's wall (profiler on) and
-    phase 4's (profiler off, a synchronisation around each call)."""
-    requests, out = trace(eng.cfg), {}
+def phase_profile(eng) -> dict:
+    """The first 4 requests of phase 4's trace, 8 new tokens each, again
+    under torch.profiler: device time by kernel over every model call, and
+    the card's idle share, 1 - device busy time / wall time. The run is
+    served once unprofiled first, to count its launches."""
+    few = lambda: trace(eng.cfg, n_requests=4, n_new=8)
+    launches = reset_launches()
+    cb = serve(eng, few())[0]
+    expect = dict(launches)
     res = profile_run(
-        f"phase-4 trace again ({len(requests)} requests, "
-        f"{main['chunk_calls']} chunk calls + {main['decode_steps']} decode "
-        f"steps)",
-        lambda: out.update(cb=serve(eng, requests)[0]),
+        f"the first 4 requests of the phase-4 trace, 8 new tokens each "
+        f"({cb.chunk_calls} chunk calls + {cb.decode_steps} decode steps)",
+        lambda: serve(eng, few()),
         lambda: serve(eng, trace(eng.cfg, n_requests=1, lo=64, hi=64,
                                  n_new=2)),
-        {"acam_attention_paged": main["launches"], "acam_attention": 0,
-         "acam_attention_single": 0}, top=12)
-    cb = out["cb"]
-    check((cb.chunk_calls, cb.decode_steps)
-          == (main["chunk_calls"], main["decode_steps"]),
-          "the profiled run made other model calls than phase 4")
-    if res["measured"]:
-        res["idle_share_phase4"] = (1 - res["device_busy_ms"]
-                                    / (1e3 * main["seconds"]))
-        print(f"[profile]   idle share against phase 4's wall: "
-              f"{res['idle_share_phase4']:.3f}", flush=True)
+        {k: expect[k] for k in KERNEL_NAMES}, top=12)
     return res
 
 
@@ -1499,11 +1561,14 @@ def phase_solo(device_desc: str):
     return res, eng
 
 
-def profile_run(what, fn, warm, expect: dict, top: int = 8) -> dict:
+def profile_run(what, fn, warm, expect: dict, top: int = 8,
+                named: dict = None) -> dict:
     """``fn()`` under torch.profiler: device time by kernel, the card's
-    idle share (1 - device busy / wall) and the attention kernels' share.
-    A trace counts only if the profiler saw exactly the ``expect`` launches
-    per kernel (two tries); else its numbers are not measured."""
+    idle share (1 - device busy / wall) and the attention kernels' share;
+    ``named`` maps a label to a set of device kernel names whose time is
+    summed into one row. A trace counts only if the profiler saw exactly
+    the ``expect`` launches per kernel (two tries); else its numbers are
+    not measured."""
     rows, wall, seen, complete = profiled_complete(fn, warm, expect)
     if not complete:
         print(f"[profile] {what}: not measured; in two tries torch.profiler "
@@ -1524,6 +1589,14 @@ def profile_run(what, fn, warm, expect: dict, top: int = 8) -> dict:
     for r in res["top"]:
         print(f"[profile]   {r['ms']:9.2f} ms {r['share']:6.3f} "
               f"{r['count']:7d}x  {r['kernel']}", flush=True)
+    for label, names in (named or {}).items():
+        hit = [(ms, n) for k, ms, n in rows if k in names]
+        ms = sum(m for m, _ in hit)
+        res[label] = dict(ms=ms, count=sum(n for _, n in hit),
+                          share=ms / busy_ms, kernels=len(hit))
+        print(f"[profile]   {label}: {ms:.2f} ms = {ms / busy_ms:.3f} of "
+              f"busy, {res[label]['count']} launches of {len(hit)} kernels",
+              flush=True)
     return res
 
 
@@ -1933,8 +2006,8 @@ def phase_contiguous_pool(device_desc: str) -> dict:
          "acam_attention_single": 0}, top=10)
     # raceit_q8 couples a pool's rows through whole-tensor quantizer scales
     # (as the reference says of its batcher), so its tokens are compared
-    # with solo runs, not held to them
-    res["raceit_same_as_solo"] = solo_matches(eng, requests, cb.done)
+    # with solo runs, not held to them (the first 4 requests)
+    res["raceit_same_as_solo"] = solo_matches(eng, requests[:4], cb.done)
     # the kernels against their plain versions on the pool, 4 layers
     short = shallow(eng, 4)
     few = trace(cfg, n_requests=4, lo=64, hi=300, n_new=8)
@@ -1954,13 +2027,13 @@ def phase_contiguous_pool(device_desc: str) -> dict:
     deng = GenerationEngine(cfg, fparams, ExecConfig(mode="digital"),
                             max_len=1024, device=DEVICE)
     cb_d, _ = serve_pool(deng, trace(cfg))
-    res["digital_same_as_solo"] = solo_matches(deng, trace(cfg), cb_d.done,
-                                               margin=1e-3)
+    res["digital_same_as_solo"] = solo_matches(deng, trace(cfg)[:4],
+                                               cb_d.done, margin=1e-3)
     print(f"[pool] kernels equal to plain attention on a 4-layer pool ("
           f"{len(few)} requests); digital pool: "
-          f"{res['digital_same_as_solo']} of {len(requests)} requests equal "
+          f"{res['digital_same_as_solo']} of the first 4 requests equal "
           f"to their solo runs (the rest part at a near tie); raceit_q8 "
-          f"pool: {res['raceit_same_as_solo']} of {len(requests)} equal to "
+          f"pool: {res['raceit_same_as_solo']} of 4 equal to "
           f"solo runs on the same engine (not held: whole-tensor scales "
           f"couple the slots) ({device_desc})", flush=True)
     del deng, fparams
@@ -2125,8 +2198,8 @@ def phase_gemma3_pool(device_desc: str) -> dict:
          "acam_attention_single": 0}, top=10)
     # raceit_q8 couples the pool's rows through whole-tensor quantizer
     # scales, so its tokens are compared with solo runs, not held to them
-    # (the first 4 requests: a solo run of 34 layers takes some 10 s)
-    res["raceit_same_as_solo"] = solo_matches(eng, requests[:4], cb.done)
+    # (the first 2 requests: a solo run of 34 layers takes some 10 s)
+    res["raceit_same_as_solo"] = solo_matches(eng, requests[:2], cb.done)
     # the kernels against their plain versions: a 6-layer pool (one
     # period: 5 local, 1 global) with ring-wrapping requests, then a solo
     # 1536-token prompt (the sq >= L prefill and the band over 1536 keys)
@@ -2155,18 +2228,331 @@ def phase_gemma3_pool(device_desc: str) -> dict:
                             max_len=2048, device=DEVICE)
     fresh = lambda: trace(cfg, n_requests=16, lo=128, hi=1024, n_new=64)
     cb_d, _ = pool(deng, fresh())
-    res["digital_same_as_solo"] = solo_matches(deng, fresh(), cb_d.done,
+    res["digital_same_as_solo"] = solo_matches(deng, fresh()[:4], cb_d.done,
                                                margin=1e-3)
     print(f"[gemma3] kernels equal to plain attention on a 6-layer pool ("
           f"{len(wrap)} requests of {[len(r.prompt) for r in wrap]} tokens "
           f"and 160 new, every ring wrapping) and on a 1536-token solo "
-          f"prompt; digital pool: {res['digital_same_as_solo']} of "
-          f"{len(requests)} requests equal to their solo runs (the rest "
+          f"prompt; digital pool: {res['digital_same_as_solo']} of the "
+          f"first 4 requests equal to their solo runs (the rest "
           f"part at a near tie); raceit_q8 pool: "
-          f"{res['raceit_same_as_solo']} of 4 equal to solo runs (not held: "
+          f"{res['raceit_same_as_solo']} of 2 equal to solo runs (not held: "
           f"whole-tensor scales couple the slots) ({device_desc})",
           flush=True)
     del deng, fparams
+    torch.cuda.empty_cache()
+    return res
+
+
+# ----------------------------------------------------------- phase 14
+
+MOE_LAYERS = 4  # of mixtral-8x22b's 56 and llama4-scout's 48
+F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+
+
+def expert_products(moe_p, C: int):
+    """The three expert products of one MoE layer at capacity ``C`` on its
+    own weights: (fn, bound ms, bound by). The weights are read once, the
+    activations read and written once; float32 operations at the peak
+    outside the tensor cores (TF32 is off)."""
+    from repro_torch.models import moe as M
+    w1, w2, w3 = moe_p["w1"], moe_p["w2"], moe_p["w3"]
+    E, D, F = w1.shape
+    g = torch.Generator(device=w1.device).manual_seed(SEED)
+    disp = torch.randn((E, C, D), generator=g, device=w1.device)
+    h = torch.randn((E, C, F), generator=g, device=w1.device)
+    fn = lambda: (M._bmm(disp, w1), M._bmm(disp, w3), M._bmm(h, w2))
+    nbytes = 4 * (3 * E * D * F + 2 * E * C * D + 3 * E * C * F)
+    ops = 3 * 2 * E * C * D * F
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return fn, 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                          else "operations")
+
+
+def expert_kernel_names(moe_p, Cs) -> set:
+    """The device kernels `torch.bmm` launches for the expert products at
+    each capacity in ``Cs``: a profile of the products alone, three times
+    over, taken again (twice at most) while it records fewer than those
+    nine launches (CUPTI can drop a short window's records)."""
+    names = set()
+    for C in Cs:
+        fn = expert_products(moe_p, C)[0]
+        for _ in range(3):
+            rows, _ = profiled(lambda: [fn() for _ in range(3)], fn)
+            if sum(n for _, _, n in rows) >= 9:
+                break
+        if sum(n for _, _, n in rows) < 9:
+            print(f"[moe-pool] the profiler recorded "
+                  f"{sum(n for _, _, n in rows)} of 9 expert products at C "
+                  f"{C}; the expert bmm row may miss their kernels",
+                  flush=True)
+        names |= {name for name, _, _ in rows}
+    return names
+
+
+def routing_on_card_and_cpu(eng, prompt_len: int) -> dict:
+    """Layer 0's router logits of one admission prefill, routed on the card
+    and on the CPU: expert ids, gates, kept choices and slots must be equal
+    bit for bit."""
+    from repro_torch.models import moe as M
+    seen = []
+    inner = M.route
+    M.route = lambda logits, cfg, plan: (seen.append(logits.clone())
+                                         or inner(logits, cfg, plan))
+    try:
+        serve_pool(eng, trace(eng.cfg, n_requests=1, lo=prompt_len,
+                              hi=prompt_len, n_new=1),
+                   prefill_len=prompt_len)
+    finally:
+        M.route = inner
+    logits = seen[0]
+    card = M.route(logits, eng.cfg, eng.plan)
+    cpu = M.route(logits.cpu(), eng.cfg, eng.plan)
+    for field in ("gate", "expert", "keep", "slot"):
+        a, b = getattr(card, field).cpu(), getattr(cpu, field)
+        check(a.dtype == b.dtype and torch.equal(a, b),
+              f"routing on the card and the CPU differ in {field}")
+    probs = eng.plan.softmax(logits, axis=-1)
+    top = torch.sort(probs, dim=-1, descending=True).values
+    K = eng.cfg.top_k
+    return dict(tokens=int(logits.shape[0]), C=card.C,
+                ties=float((top[:, K - 1] == top[:, K]).float().mean()),
+                dropped=int((~card.keep).sum()),
+                distinct_probs=int(probs.unique().numel()))
+
+
+def phase_moe_pool(device_desc: str) -> dict:
+    """mixtral-8x22b at its published width (d 6144, 48 heads and 8 KV heads
+    of 128, d_ff 16384, vocab 32768, 8 experts top-2, sliding window 4096),
+    4 of its 56 layers, through the contiguous slot pool: 8 slots, max_len
+    2048, admission pinned at 1024 tokens."""
+    from repro_torch.configs.base import ExecConfig
+    from repro_torch.models.moe import capacity
+    from repro_torch.serve import GenerationEngine
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng, fparams = build_model("mixtral-8x22b", n_layers=MOE_LAYERS,
+                               max_len=2048)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    cfg = eng.cfg
+    check((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+           cfg.d_ff, cfg.vocab_size, cfg.n_experts, cfg.top_k, cfg.window,
+           cfg.mixer_pattern, cfg.ffn_pattern)
+          == (6144, 48, 8, 128, 16384, 32768, 8, 2, 4096, ("attn_local",),
+              ("moe",)), "mixtral-8x22b is not at its published width")
+    moe0 = eng.params["blocks"][0]["moe"]
+    check(all(moe0[k].data_ptr() == fparams["blocks"][0]["moe"][k].data_ptr()
+              and moe0[k].dtype == torch.float32 for k in moe0),
+          "the expert weights are not the float weights, uncopied")
+    n_params = count_parameters(fparams)
+    print("[moe-pool] plan:\n" + eng.explain_plan(), flush=True)
+    pool = functools.partial(serve_pool, prefill_len=1024)
+    pool(eng, trace(cfg, n_requests=1, lo=128, hi=128, n_new=2))  # warm
+    requests = trace(cfg, n_requests=16, lo=128, hi=1024, n_new=32)
+    times: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    launches = reset_launches()
+    cb, secs = pool(eng, requests, times)
+    counts = dict(launches)
+    for r in requests:
+        done = cb.done[r.rid]
+        check(done.error is None and len(done.result) == r.n_new == 32,
+              f"request {r.rid}: {done.error or len(done.result)}")
+    calls = cb.prefills + cb.decode_steps
+    pool_launches_check(counts, cfg.n_layers, calls)
+    tokens = sum(len(cb.done[r.rid].result) for r in requests)
+    res = dict(tokens=tokens, seconds=secs, tokens_per_s=tokens / secs,
+               init_s=init_s, init_peak_gib=init_gib, parameters=n_params,
+               prefills=cb.prefills, decode_steps=cb.decode_steps,
+               decode_tokens=cb.decode_tokens,
+               prefill_ms=1e3 * float(np.mean(times["prefill"])),
+               decode_ms=1e3 * float(np.mean(times["decode"])),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches=counts)
+    print(f"[moe-pool] mixtral-8x22b {MOE_LAYERS} of 56 layers, d6144 48H/8KV "
+          f"of 128, 8 experts top-2 (d_ff 16384, float32), window 4096, "
+          f"raceit_q8, {n_params / 1e9:.2f} B parameters (init {init_s:.1f} "
+          f"s, peak {init_gib:.2f} GiB), contiguous slot pool (8 slots, "
+          f"prefill_len 1024, max_len 2048): {tokens} tokens in {secs:.2f} "
+          f"s = {res['tokens_per_s']:.1f} tok/s; {cb.prefills} prefills "
+          f"(mean {res['prefill_ms']:.1f} ms), {cb.decode_steps} decode "
+          f"steps (mean {res['decode_ms']:.1f} ms), "
+          f"{cb.decode_tokens / cb.decode_steps:.2f} tokens a step; peak "
+          f"memory {res['peak_mem_gib']:.2f} GiB; contiguous attention "
+          f"launches {counts['acam_attention']} = 2 x {cfg.n_layers} x "
+          f"{calls} ({device_desc})", flush=True)
+    # the expert products of one layer alone, at the decode step's capacity
+    # (8 rows) and the admission prefill's (1024 rows)
+    res["expert_products"] = []
+    for what, T in (("decode", 8), ("prefill", 1024)):
+        C = capacity(cfg, T)
+        fn, bound_ms, bound_by = expert_products(moe0, C)
+        ms, host_free = device_ms(fn, 5, reps=2)
+        res["expert_products"].append(dict(
+            call=what, rows=T, C=C, ms=ms, host_free=host_free,
+            bound_ms=bound_ms, bound_by=bound_by))
+        print(f"[moe-pool] expert products of one layer at the {what} "
+              f"capacity (T {T}, C {C}): {ms:.3f} ms device (CUDA events), "
+              f"bound {bound_ms:.3f} ms ({bound_by}) ({device_desc})",
+              flush=True)
+    names = expert_kernel_names(moe0, [capacity(cfg, 8),
+                                       capacity(cfg, 1024)])
+    few = trace(cfg, n_requests=8, lo=128, hi=1024, n_new=16)
+    res["profile"] = profile_run(
+        "the first 8 requests of the phase-14 trace, 16 new tokens each",
+        lambda: pool(eng, few),
+        lambda: pool(eng, trace(cfg, n_requests=1, lo=128, hi=128,
+                                n_new=2)),
+        {"acam_attention_paged": 0,
+         "acam_attention": 2 * cfg.n_layers * (8 + 15),
+         "acam_attention_single": 0}, top=10, named={"expert bmm": names})
+    print(f"[moe-pool] expert bmm launches expected in the profiled run: "
+          f"3 x {cfg.n_layers} x {8 + 15}", flush=True)
+    # routing: one layer's router logits of a 1024-token prefill
+    res["routing"] = routing_on_card_and_cpu(eng, 1024)
+    print(f"[moe-pool] routing of layer 0's router logits of a 1024-token "
+          f"prefill ({res['routing']['tokens']} rows, C "
+          f"{res['routing']['C']}): expert ids, gates, kept choices and "
+          f"slots equal on the card and the CPU; "
+          f"{res['routing']['ties']:.3f} of rows tie at the 2nd "
+          f"probability, {res['routing']['distinct_probs']} distinct "
+          f"probabilities, {res['routing']['dropped']} choices dropped "
+          f"({device_desc})", flush=True)
+    # the kernels against their plain versions on a 2-layer pool
+    short = shallow(eng, 2)
+    two = trace(cfg, n_requests=4, lo=128, hi=1024, n_new=8)
+    cb_k, _ = pool(short, two)
+    cb_p, _ = swapped_to_plain(lambda: pool(short, two))
+    for r in two:
+        got, want = cb_k.done[r.rid].result.tolist(), \
+            cb_p.done[r.rid].result.tolist()
+        check(got == want, f"2-layer pool request {r.rid}: kernel {got} != "
+                           f"plain {want}")
+    del eng, short
+    torch.cuda.empty_cache()
+    # digital greedy on the same float weights: an expert's capacity counts
+    # the pool's pad rows and idle slots, so pool tokens are compared with
+    # solo runs, not held to them (as in the reference)
+    deng = GenerationEngine(cfg, fparams, ExecConfig(mode="digital"),
+                            max_len=2048, device=DEVICE)
+    fresh = lambda: trace(cfg, n_requests=8, lo=128, hi=1024, n_new=16)
+    cb_d, _ = pool(deng, fresh())
+    res["digital_same_as_solo"] = solo_matches(deng, fresh(), cb_d.done)
+    print(f"[moe-pool] kernels equal to plain attention on a 2-layer pool "
+          f"({len(two)} requests); digital pool: "
+          f"{res['digital_same_as_solo']} of 8 requests equal to their solo "
+          f"runs (not held: capacity counts pad rows and idle slots) "
+          f"({device_desc})", flush=True)
+    del deng, fparams, moe0
+    torch.cuda.empty_cache()
+    return res
+
+
+# ----------------------------------------------------------- phase 15
+
+def phase_moe_paged(device_desc: str) -> dict:
+    """llama4-scout-17b-a16e at its published width (d 5120, 40 heads
+    padded to 48 over 8 KV heads of 128, d_ff 8192, vocab 202048, 16
+    experts top-1), 4 of its 48 layers, through the paged batcher."""
+    from repro_torch.kernels import acam_attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.models.moe import capacity
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng, fparams = build_model("llama4-scout-17b-a16e", n_layers=MOE_LAYERS)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_params = count_parameters(fparams)
+    del fparams
+    cfg = eng.cfg
+    check((cfg.d_model, cfg.n_heads, cfg.head_pad_to, cfg.n_kv_heads,
+           cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size, cfg.n_experts,
+           cfg.top_k, cfg.mixer_pattern)
+          == (5120, 40, 48, 8, 128, 8192, 202048, 16, 1, ("attn",)),
+          "llama4-scout-17b-a16e is not at its published width")
+    print("[moe-paged] plan:\n" + eng.explain_plan(), flush=True)
+    serve(eng, trace(cfg, n_requests=1, lo=64, hi=64, n_new=2))  # warm-up
+    requests = trace(cfg, n_requests=8, lo=64, hi=256, n_new=16)
+    launches = reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    cb, secs, times, peak_pages = serve(eng, requests, timed=True)
+    counts = dict(launches)
+    for r in requests:
+        done = cb.done[r.rid]
+        check(done.error is None and len(done.result) == r.n_new,
+              f"request {r.rid}: {done.error or len(done.result)}")
+    calls = cb.chunk_calls + cb.decode_steps
+    check(cb.paged and counts["acam_attention_paged"]
+          == 2 * cfg.n_layers * calls
+          and counts["acam_attention"] == 0
+          and counts["acam_attention_single"] == 0,
+          f"{counts} attention launches for {calls} model calls")
+    tokens = sum(len(cb.done[r.rid].result) for r in requests)
+    res = dict(tokens=tokens, seconds=secs, tokens_per_s=tokens / secs,
+               init_s=init_s, init_peak_gib=init_gib, parameters=n_params,
+               decode_steps=cb.decode_steps, chunk_calls=cb.chunk_calls,
+               decode_ms=1e3 * float(np.mean(times["decode"])),
+               chunk_ms=1e3 * float(np.mean(times["chunk"])),
+               peak_pages=peak_pages,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches=counts)
+    C = capacity(cfg, 8)  # a decode step of 8 slots
+    fn, bound_ms, bound_by = expert_products(eng.params["blocks"][0]["moe"],
+                                             C)
+    ms, host_free = device_ms(fn, 5, reps=2)
+    res["expert_products"] = dict(call="decode", rows=8, C=C, ms=ms,
+                                  host_free=host_free, bound_ms=bound_ms,
+                                  bound_by=bound_by)
+    # the paged kernel against its plain version on a 2-layer run, every
+    # attention output finite, padded heads 40..47 included (they are
+    # multiplied by zero after the kernel, which would keep a NaN)
+    short = shallow(eng, 2)
+    few = trace(cfg, n_requests=3, lo=64, hi=200, n_new=6)
+    outputs = [0]
+    inner = L._raceit_paged_decode
+
+    def finite(*a, **kw):
+        out = inner(*a, **kw)
+        check(out.shape[2] == cfg.head_pad_to,
+              f"paged attention output of {out.shape[2]} heads")
+        check(bool(torch.isfinite(out).all()),
+              "non-finite paged attention output")
+        outputs[0] += 1
+        return out
+    L._raceit_paged_decode = finite
+    try:
+        cb_k, *_ = serve(short, few)
+        kernel = A._launch_paged
+        A._launch_paged = A.acam_attention_codes_plain
+        try:
+            cb_p, *_ = serve(short, few)
+        finally:
+            A._launch_paged = kernel
+    finally:
+        L._raceit_paged_decode = inner
+    check(outputs[0] > 0, "no paged attention call was checked")
+    for r in few:
+        got, want = cb_k.done[r.rid].result.tolist(), \
+            cb_p.done[r.rid].result.tolist()
+        check(got == want, f"request {r.rid}: kernel {got} != plain {want}")
+    print(f"[moe-paged] llama4-scout-17b-a16e {MOE_LAYERS} of 48 layers, "
+          f"d5120, 40 heads padded to 48 over 8 KV heads, 16 experts top-1 "
+          f"(d_ff 8192, float32), raceit_q8 paged, {n_params / 1e9:.2f} B "
+          f"parameters (init {init_s:.1f} s, peak {init_gib:.2f} GiB): "
+          f"{tokens} tokens in {secs:.2f} s = {res['tokens_per_s']:.1f} "
+          f"tok/s; {cb.decode_steps} decode steps (mean "
+          f"{res['decode_ms']:.1f} ms), {cb.chunk_calls} chunk calls (mean "
+          f"{res['chunk_ms']:.1f} ms); peak pages {peak_pages}; peak memory "
+          f"{res['peak_mem_gib']:.2f} GiB; paged attention launches "
+          f"{counts['acam_attention_paged']} = 2 x {cfg.n_layers} x {calls}; "
+          f"expert products of one layer at decode {ms:.3f} ms, bound "
+          f"{bound_ms:.3f} ms ({bound_by}); kernel equal to plain on a "
+          f"2-layer run, {outputs[0]} attention outputs finite, padded heads "
+          f"included ({device_desc})", flush=True)
+    del eng, short
     torch.cuda.empty_cache()
     return res
 
@@ -2331,7 +2717,7 @@ def main() -> None:
     sweep_rows = phase_split_sweep(desc)
     lap("3 kernels")
     main_res, eng = phase_main(desc)
-    prof_res = phase_profile(eng, main_res)
+    prof_res = phase_profile(eng)
     del eng
     phase_agree()
     torch.cuda.empty_cache()
@@ -2355,7 +2741,11 @@ def main() -> None:
     lap("12 gqa-paged")
     gemma_res = phase_gemma3_pool(desc)
     lap("13 gemma3")
-    print(f"[time] phases 3 to 13: {time.perf_counter() - t_start:.1f} s; "
+    moe_pool_res = phase_moe_pool(desc)
+    lap("14 moe pool")
+    moe_paged_res = phase_moe_paged(desc)
+    lap("15 moe paged")
+    print(f"[time] phases 3 to 15: {time.perf_counter() - t_start:.1f} s; "
           + ", ".join(f"{k} {v:.1f} s" for k, v in laps.items()), flush=True)
 
     # each kernel's headline: its main-path decode shape in mode pot
@@ -2368,11 +2758,14 @@ def main() -> None:
     # launches on the main paths, each counted from 0 over its own run
     launches = {"acam_attention_paged": (
                     main_res["launches"]
-                    + gqa_res["launches"]["acam_attention_paged"]),
+                    + gqa_res["launches"]["acam_attention_paged"]
+                    + moe_paged_res["launches"]["acam_attention_paged"]),
                 "acam_attention": (bucket_res["launches"]["acam_attention"]
                                    + solo_res["launches"]["acam_attention"]
                                    + pool_res["launches"]["acam_attention"]
-                                   + gemma_res["launches"]["acam_attention"]),
+                                   + gemma_res["launches"]["acam_attention"]
+                                   + moe_pool_res["launches"][
+                                       "acam_attention"]),
                 "acam_attention_single":
                     solo_res["launches"]["acam_attention_single"]}
     kernels = []
@@ -2416,6 +2809,9 @@ def main() -> None:
                                     "contiguous_pool": pool_res,
                                     "gqa_bias_paged": gqa_res,
                                     "gemma3_pool": gemma_res,
+                                    "moe_pool": moe_pool_res,
+                                    "moe_paged": moe_paged_res,
+                                    "laps": laps,
                                     "smem_d320": smem_rows}),
           flush=True)
     print(desc, flush=True)

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from ..core import ops as acam_ops
 from ..core.attention import dd_matmul_codes
 from ..core.ops import LOGIT_FMT
-from ..core.quant import quantize_tensor
+from ..core.quant import quantize_tensor, ref_exp, ref_sum
 from ..core.softmax import acam_softmax
 from ..models import layers
 from ..models.layers import NEG_INF, QuantizedWeight
@@ -154,7 +154,12 @@ def _activation_raceit_lut(plan, x, name=None):
 
 @register("softmax", "digital")
 def _softmax_digital(plan, logits, axis):
-    return torch.softmax(logits, dim=axis)
+    """`jax.nn.softmax` as XLA's CPU graph computes it: exp(x - max) by
+    XLA's exp, summed in XLA's order, then divided; the MoE router's
+    gates and top-k are then the reference's bit for bit."""
+    x = logits.float().movedim(axis, -1)
+    e = ref_exp(x - x.amax(-1, keepdim=True))
+    return (e / ref_sum(e)[..., None]).movedim(-1, axis)
 
 
 @register("softmax", "raceit_acam")

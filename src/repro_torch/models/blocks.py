@@ -2,13 +2,13 @@
 
 The port of `repro.models.blocks` for decoder-only stacks of global
 (``attn``) and sliding-window (``attn_local``) attention layers with dense
-FFNs, over contiguous KV caches of two lengths (max_len columns for global
-layers, a ring of min(max_len, window) for local ones) or block-paged pools
-(global layers only). The reference stacks each period position's parameters
-along a scan dimension (`blocks.init_stack`); the port keeps a plain list
-of per-layer dicts in layer order (`repro_torch.ckpt` unstacks the
-reference's layout) and runs the layers in a Python loop in place of
-``jax.lax.scan``.
+or Mixture-of-Experts (``moe``) FFNs, over contiguous KV caches of two
+lengths (max_len columns for global layers, a ring of min(max_len, window)
+for local ones) or block-paged pools (global layers only). The reference
+stacks each period position's parameters along a scan dimension
+(`blocks.init_stack`); the port keeps a plain list of per-layer dicts in
+layer order (`repro_torch.ckpt` unstacks the reference's layout) and runs
+the layers in a Python loop in place of ``jax.lax.scan``.
 """
 from __future__ import annotations
 
@@ -19,26 +19,30 @@ import torch
 from ..configs.base import ExecConfig, ModelConfig
 from ..exec.plan import ExecPlan, as_plan
 from ..exec.plan import layer_plan as _mixer_plan
-from . import layers
+from . import layers, moe as moe_mod
 
 Params = dict
 
 
 def _check_layer(cfg: ModelConfig, mixer: str, ffn_kind: str) -> None:
-    if mixer not in ("attn", "attn_local") or ffn_kind != "dense":
+    if mixer not in ("attn", "attn_local") or ffn_kind not in ("dense", "moe"):
         raise NotImplementedError(
             f"layer kind ({mixer}, {ffn_kind}) is not ported yet; the port "
             f"serves decoder-only attention stacks (global and local) with "
-            f"dense FFNs")
+            f"dense or MoE FFNs")
 
 
 def init_layer(gen, cfg: ModelConfig, mixer: str, ffn_kind: str, device,
                dtype) -> Params:
     _check_layer(cfg, mixer, ffn_kind)
-    return {"norm1": layers.init_norm(cfg, device, dtype),
-            "attn": layers.init_attention(gen, cfg, device, dtype),
-            "norm2": layers.init_norm(cfg, device, dtype),
-            "ffn": layers.init_ffn(gen, cfg, device, dtype)}
+    p = {"norm1": layers.init_norm(cfg, device, dtype),
+         "attn": layers.init_attention(gen, cfg, device, dtype),
+         "norm2": layers.init_norm(cfg, device, dtype)}
+    if ffn_kind == "moe":
+        p["moe"] = moe_mod.init_moe(gen, cfg, device, dtype)
+    else:
+        p["ffn"] = layers.init_ffn(gen, cfg, device, dtype)
+    return p
 
 
 def apply_layer(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
@@ -60,7 +64,10 @@ def apply_layer(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
         block_table=block_table, page_size=page_size, chunk_offs=chunk_offs)
     x = x + m
     h2 = layers.apply_norm(p["norm2"], x, cfg)
-    x = x + layers.ffn(p["ffn"], h2, cfg, plan)
+    if ffn_kind == "moe":
+        x = x + moe_mod.moe(p["moe"], h2, cfg, plan)
+    else:
+        x = x + layers.ffn(p["ffn"], h2, cfg, plan)
     return x, ({"attn": new_cache} if new_cache is not None else None)
 
 

@@ -46,7 +46,8 @@ def quantize_model_params(params: Params) -> Params:
 
     The reference runs this eagerly, so its ``/ 127.0`` is a true division
     (a jitted graph would multiply by the reciprocal); ``wo`` contracts over
-    (heads, head_dim).
+    (heads, head_dim). A ``moe`` subtree (router and experts) stays float:
+    the same tensor objects come back, as in the reference.
     """
     def q2d(leaf, name):
         arr = leaf.float()
@@ -62,6 +63,7 @@ def quantize_model_params(params: Params) -> Params:
         if isinstance(tree, dict):
             return {name: (q2d(leaf, name) if name in _QUANTIZABLE
                            and isinstance(leaf, torch.Tensor) and leaf.ndim >= 2
+                           else leaf if name == "moe"
                            else walk(leaf)) for name, leaf in tree.items()}
         if isinstance(tree, (list, tuple)):
             return type(tree)(walk(x) for x in tree)
