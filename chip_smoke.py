@@ -114,9 +114,9 @@ Phases, in order; any failure raises and the script exits non-zero:
             on a 6-layer pool (one period, every ring wrapping) and on a
             solo 1536-token prompt (the prefill past the ring and the band
             over 1536 keys); the same float weights in digital mode, where
-            the first 4 requests' pool tokens must be their solo `generate`
-            tokens (phase 11's near-tie rule); raceit_q8 against solo runs
-            on 2 requests, counted, not held.
+            the first 2 requests' tokens in a pool of the first 8 (32 new)
+            must be their solo `generate` tokens (phase 11's near-tie rule);
+            raceit_q8 against solo runs on 2 requests, counted, not held.
 14. moe pool  mixtral-8x22b at its published width (d 6144, 48 heads and 8
             KV heads of 128, 8 experts of d_ff 16384, top-2, sliding window
             4096, vocab 32768) cut to 4 of its 56 layers (float32 weights of
@@ -145,10 +145,44 @@ Phases, in order; any failure raises and the script exits non-zero:
             version on a 2-layer run, every attention output finite (the
             padded heads 40..47 too, which are multiplied by zero after the
             kernel).
+16. ssm pool  mamba2-130m at its published width, nothing cut (24 Mamba-2
+            layers, d 768, d_inner 1536 in 24 SSM heads of 64, state 128,
+            chunk 128, vocab 50280, tied embeddings, no attention and no
+            FFN), resident int8 projections from a seed, through the
+            contiguous slot pool (8 slots, prefill_len 512, max_len 1024) on
+            phase 4's trace: tokens/s, prefill and decode ms, peak memory,
+            no kernel launch at all, the first 8 requests again under
+            torch.profiler. Then, on the float weights in digital mode:
+            layer 0's mixer on a 1024-token prefill on the card against the
+            CPU (TF32 off, within 1e-4 of the largest output); prefill(200)
+            and 8 decode steps against one prefill of the 208 tokens (the
+            reference's 2e-3 rule); pool tokens against solo runs for the
+            first 2 requests, counted, not held (the SSM scans the left
+            pads), in digital and raceit_q8.
+17. hybrid pool  jamba-v0.1-52b at its published width (d 4096, 32 heads
+            and 8 KV heads of 128, d_inner 8192 in 128 SSM heads, 16 experts
+            of d_ff 14336 top-2, vocab 65536, no positional embedding) cut
+            to 8 of its 32 layers, one period (7 Mamba-2 layers and the
+            attention layer 4; dense and MoE FFNs in turn; float32 of 8
+            layers is about 53 GB, of 32 about 206 GB), resident int8 with
+            float32 experts, through the contiguous slot pool (8 slots,
+            max_len 2048, prefill_len 1024): 16 requests of 128..1024
+            tokens, 32 new; tokens/s, prefill and decode ms, peak memory at
+            init and serving, the contiguous launch count (2 x 1 x
+            (prefills + decode steps)); the first 8 requests again under
+            torch.profiler with the expert bmm as one row; the kernels
+            against their plain versions on the pool (same tokens); pool
+            tokens against solo runs on 2 requests, counted, not held (the
+            solo decode takes the one-tile kernel at rep 4), in raceit_q8
+            and, on the float weights, digital.
 
 Phase 9 also drives the float attention wrappers with the reference's
 default fold_scale=False at D 128 (the kernels divide by sqrt(d)), with
-their launch counts.
+their launch counts, and the staged oracle's Compute-ACAM emulation on the
+card: `mult8_codes` on all 65536 pairs of int8 codes by the 4-bit
+two-variable tables and by their match lines (``hw=True``), and
+`dd_matmul_codes(fidelity="acam")` on a (4, 16, 64) x (64, 16) case, each
+equal to the integer product.
 
 Phase 3 also holds the LUT kernel (int8 and int32 codes), the crossbar MVM
 kernel (exact, and quantizing at adc_bits 8 and 6; with edge shapes off
@@ -174,7 +208,10 @@ and one-tile kernels. Phase 3 also holds GQA at 6 query heads a KV head,
 the two MoE models', in every mode: the mixtral pool's decode (64 groups
 of 6 rows over 2048-key rings) and admission prefill (48 heads, 1024 x
 1024, local and left-pad masks), llama4-scout's paged GQA decode (8 slots
-x 8 groups, 6 rows) and flat 64-row paged chunk. The build phase prints
+x 8 groups, 6 rows) and flat 64-row paged chunk; and at 4 query heads a KV
+head, jamba's, in every mode: its pool's decode (64 groups of 4 rows over
+2048 keys, per-group lengths) and admission prefill (32 heads, 1024 x 1024,
+left-pad mask, no local band). The build phase prints
 each kernel's registers, static shared memory and spills (`nvcc -Xptxas
 -v`), and each attention kernel's dynamic shared memory at D 320 from the
 launchers' own layout code.
@@ -917,9 +954,30 @@ def rep6_cases(gen, mode) -> list:
     ]
 
 
+def rep4_cases(gen, mode) -> list:
+    """GQA at 4 query heads a KV head, jamba-v0.1-52b's attention layer (32
+    heads over 8 KV heads of 128, no positional embedding, global): the
+    pool's decode (8 slots x 8 groups, 4 rows, 2048 keys, per-group lengths
+    with zeros and one full group) and its admission prefill (32 heads, 1024
+    x 1024, causal with a left-pad mask, no local band)."""
+    tag = f"rep 4 {mode}"
+    lens = gen.integers(0, 2049, 64).tolist()
+    lens[5] = lens[33] = 0
+    lens[20] = 2048
+    return [
+        contiguous_case(f"jamba pool decode 2048 lens {tag}", G=64, sq=4,
+                        sk=2048, d=128, mode=mode, lens=lens),
+        contiguous_case(f"jamba pool prefill pad {tag}", G=32, sq=1024,
+                        sk=1024, d=128, mode=mode, heads=32,
+                        pad=[int(gen.integers(1, 896))], causal=True),
+    ]
+
+
 def phase_kernels(device_desc: str) -> list:
     rows = []
     extra = []
+    for mode in ("pot", "pot_fine", "uniform"):
+        extra += rep4_cases(np.random.default_rng(SEED + 19), mode)
     for mode in ("pot", "pot_fine", "uniform"):
         extra += rep6_cases(np.random.default_rng(SEED + 18), mode)
     gen = np.random.default_rng(SEED + 1)
@@ -1570,7 +1628,7 @@ def profile_run(what, fn, warm, expect: dict, top: int = 8,
     the ``expect`` launches per kernel (two tries); else its numbers are
     not measured."""
     rows, wall, seen, complete = profiled_complete(fn, warm, expect)
-    if not complete:
+    if not complete or not rows:  # an empty trace sees no launch either
         print(f"[profile] {what}: not measured; in two tries torch.profiler "
               f"recorded at last {seen} attention launches, the counters "
               f"{expect}", flush=True)
@@ -1723,6 +1781,44 @@ def phase_kernel_api(device_desc: str) -> dict:
           f"launches {launches}; small inputs equal to the CPU's plain "
           f"path ({', '.join(small)}) ({device_desc})", flush=True)
     return dict(seconds=secs, launches=launches)
+
+
+def phase_acam_oracle(device_desc: str) -> dict:
+    """The staged oracle's Compute-ACAM emulation on the card: the 8-bit
+    multiply from four 4-bit two-variable tables on all 65536 pairs, by
+    table gathers (``hw=False``) and by match lines (``hw=True``), and the
+    data-dependent matmul through the nibble tables; each must equal the
+    integer product."""
+    from repro_torch.core.attention import dd_matmul_codes
+    from repro_torch.core.ops import mult8_codes
+    x = torch.arange(-128, 128, dtype=torch.int32, device=DEVICE)
+    X, Y = torch.meshgrid(x, x, indexing="ij")
+    res = {}
+    for hw in (False, True):
+        t0 = time.perf_counter()
+        got = mult8_codes(X, Y, hw=hw)
+        torch.cuda.synchronize()
+        res[f"mult8_hw_{hw}_ms"] = 1e3 * (time.perf_counter() - t0)
+        check(got.is_cuda and got.dtype == torch.int32
+              and torch.equal(got, X * Y),
+              f"mult8_codes(hw={hw}) differs from x * y on the card")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    a = torch.randint(-128, 128, (4, 16, 64), generator=gen, device=DEVICE,
+                      dtype=torch.int8)
+    b = torch.randint(-128, 128, (64, 16), generator=gen, device=DEVICE,
+                      dtype=torch.int8)
+    got = dd_matmul_codes(a, b, fidelity="acam")
+    want = (a.cpu().long() @ b.cpu().long()).to(torch.int32)
+    check(got.is_cuda and torch.equal(got.cpu(), want),
+          "dd_matmul_codes(fidelity='acam') differs from the integer product")
+    check(torch.equal(dd_matmul_codes(a, b, fidelity="int").cpu(), want),
+          "dd_matmul_codes(fidelity='int') differs from the integer product")
+    print(f"[acam] mult8_codes on all 65536 pairs equal to x * y on the card "
+          f"(tables {res['mult8_hw_False_ms']:.1f} ms, match lines "
+          f"{res['mult8_hw_True_ms']:.1f} ms, first calls); "
+          f"dd_matmul_codes(fidelity='acam') (4, 16, 64) x (64, 16) equal to "
+          f"the integer product ({device_desc})", flush=True)
+    return res
 
 
 def phase_sqrt_d_api(device_desc: str) -> dict:
@@ -2226,15 +2322,16 @@ def phase_gemma3_pool(device_desc: str) -> dict:
     # solo run's while the pinned width is at most the window
     deng = GenerationEngine(cfg, fparams, ExecConfig(mode="digital"),
                             max_len=2048, device=DEVICE)
-    fresh = lambda: trace(cfg, n_requests=16, lo=128, hi=1024, n_new=64)
+    fresh = lambda: trace(cfg, n_requests=8, lo=128, hi=1024, n_new=32)
     cb_d, _ = pool(deng, fresh())
-    res["digital_same_as_solo"] = solo_matches(deng, fresh()[:4], cb_d.done,
+    res["digital_same_as_solo"] = solo_matches(deng, fresh()[:2], cb_d.done,
                                                margin=1e-3)
     print(f"[gemma3] kernels equal to plain attention on a 6-layer pool ("
           f"{len(wrap)} requests of {[len(r.prompt) for r in wrap]} tokens "
           f"and 160 new, every ring wrapping) and on a 1536-token solo "
-          f"prompt; digital pool: {res['digital_same_as_solo']} of the "
-          f"first 4 requests equal to their solo runs (the rest "
+          f"prompt; digital pool (8 requests, 32 new): "
+          f"{res['digital_same_as_solo']} of the first 2 requests equal to "
+          f"their solo runs (the rest "
           f"part at a near tie); raceit_q8 pool: "
           f"{res['raceit_same_as_solo']} of 2 equal to solo runs (not held: "
           f"whole-tensor scales couple the slots) ({device_desc})",
@@ -2557,6 +2654,252 @@ def phase_moe_paged(device_desc: str) -> dict:
     return res
 
 
+# ----------------------------------------------------------- phase 16
+
+def mixer_card_and_cpu(cfg, params, prompt, plan) -> dict:
+    """Layer 0's Mamba-2 mixer on one prompt's normed embeddings, on the card
+    and on the CPU, TF32 off: the largest difference against the largest
+    output."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm
+    from repro_torch.models.model import params_to
+    tok = torch.from_numpy(prompt[None]).to(DEVICE)
+    pos = torch.arange(tok.shape[1], dtype=torch.int32, device=DEVICE)[None]
+    p0 = params["blocks"][0]
+    h = L.apply_norm(p0["norm1"], L.embed(params["embed"], tok, pos, cfg), cfg)
+    card, _ = ssm.mamba(p0["mamba"], h, cfg=cfg, plan=plan)
+    cpu, _ = ssm.mamba(params_to(p0["mamba"], "cpu"), h.cpu(), cfg=cfg,
+                       plan=plan)
+    err = float((card.cpu() - cpu).abs().max())
+    return dict(tokens=int(tok.shape[1]), max_abs_err=err,
+                max_abs_out=float(cpu.abs().max()))
+
+
+def prefill_decode_against_full(model, params, prompt, t0: int) -> float:
+    """The reference's rule (tests/test_models_smoke.py): prefill(T0), then
+    decode steps, against the logits of one prefill of the whole prompt;
+    returns the largest difference."""
+    from repro_torch.models import layers as L
+    tok = torch.from_numpy(prompt[None]).to(DEVICE)
+    x, _ = model._trunk(params, tok, model._positions(tok), None)
+    full = L.unembed(params["embed"], x, model.cfg, model.plan)
+    cache = model.init_cache(1, tok.shape[1])
+    lg, cache = model.prefill(params, tok[:, :t0], cache)
+    errs = [float((lg[:, 0] - full[:, t0 - 1]).abs().max())]
+    for t in range(t0, tok.shape[1]):
+        lg, cache = model.decode_step(params, tok[:, t:t + 1], cache)
+        errs.append(float((lg[:, 0] - full[:, t]).abs().max()))
+    return max(errs)
+
+
+MIXER_RTOL = 1e-4  # card against CPU, float32 sums in other orders
+
+
+def phase_ssm_pool(device_desc: str) -> dict:
+    """mamba2-130m at its published width, nothing cut (24 Mamba-2 layers,
+    d 768, 24 SSM heads of 64, state 128, chunk 128, vocab 50280, tied
+    embeddings), through the contiguous slot pool: 8 slots, max_len 1024,
+    admission pinned at 512 tokens, phase 4's trace."""
+    from repro_torch.configs.base import ExecConfig
+    from repro_torch.serve import GenerationEngine
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng, fparams = build_model("mamba2-130m", max_len=1024)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = eng.cfg
+    check((cfg.n_layers, cfg.d_model, cfg.d_inner, cfg.ssm_heads,
+           cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk, cfg.vocab_size,
+           cfg.tie_embeddings, cfg.mixer_pattern, cfg.ffn_pattern)
+          == (24, 768, 1536, 24, 64, 128, 128, 50280, True, ("mamba",),
+              ("none",)), "mamba2-130m is not at its published width")
+    n_params = count_parameters(fparams)
+    print("[ssm-pool] plan:\n" + eng.explain_plan(), flush=True)
+    serve_pool(eng, trace(cfg, n_requests=1, lo=64, hi=64, n_new=2))  # warm
+    requests = trace(cfg)
+    times: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    cb, secs = serve_pool(eng, requests, times)
+    counts = launch_counts()
+    check(not any(counts.values()),
+          f"kernels launched by an attention-free model: {counts}")
+    for r in requests:
+        done = cb.done[r.rid]
+        check(done.error is None and len(done.result) == r.n_new == 32,
+              f"request {r.rid}: {done.error or len(done.result)}")
+    tokens = sum(len(cb.done[r.rid].result) for r in requests)
+    res = dict(tokens=tokens, seconds=secs, tokens_per_s=tokens / secs,
+               init_s=init_s, parameters=n_params, prefills=cb.prefills,
+               decode_steps=cb.decode_steps, decode_tokens=cb.decode_tokens,
+               prefill_ms=1e3 * float(np.mean(times["prefill"])),
+               decode_ms=1e3 * float(np.mean(times["decode"])),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches=counts)
+    print(f"[ssm-pool] mamba2-130m 24L d768, 24 SSM heads of 64, state 128, "
+          f"raceit_q8, {n_params / 1e6:.1f} M parameters (init {init_s:.1f} "
+          f"s), contiguous slot pool (8 slots, prefill_len 512, max_len "
+          f"1024): {tokens} tokens in {secs:.2f} s = "
+          f"{res['tokens_per_s']:.1f} tok/s; {cb.prefills} prefills (mean "
+          f"{res['prefill_ms']:.1f} ms), {cb.decode_steps} decode steps "
+          f"(mean {res['decode_ms']:.1f} ms), "
+          f"{cb.decode_tokens / cb.decode_steps:.2f} tokens a step; peak "
+          f"memory {res['peak_mem_gib']:.2f} GiB; kernel launches {counts} "
+          f"({device_desc})", flush=True)
+    res["profile"] = profile_run(
+        "the first 8 requests of the phase-16 trace (8 prefills + 31 decode "
+        "steps)", lambda: serve_pool(eng, trace(cfg)[:8]),
+        lambda: serve_pool(eng, trace(cfg, n_requests=1, lo=64, hi=64,
+                                      n_new=2)),
+        {"acam_attention_paged": 0, "acam_attention": 0,
+         "acam_attention_single": 0}, top=10)
+    res["raceit_same_as_solo"] = solo_matches(eng, requests[:2], cb.done)
+    del eng
+    torch.cuda.empty_cache()
+    # the mixer on the card against the CPU, and the prefill/decode rule, on
+    # the float weights in digital mode
+    deng = GenerationEngine(cfg, fparams, ExecConfig(mode="digital"),
+                            max_len=1024, device=DEVICE)
+    prompt = trace(cfg, n_requests=1, lo=1024, hi=1024, n_new=1)[0].prompt
+    res["mixer"] = mixer_card_and_cpu(cfg, fparams, prompt, deng.plan)
+    m = res["mixer"]
+    check(m["max_abs_err"] <= MIXER_RTOL * m["max_abs_out"],
+          f"layer 0's mixer: card and CPU differ by {m['max_abs_err']} "
+          f"(outputs up to {m['max_abs_out']})")
+    res["prefill_decode_err"] = prefill_decode_against_full(
+        deng.model, fparams, prompt[:208], 200)
+    check(res["prefill_decode_err"] < 2e-3,
+          f"prefill(200) + 8 decode steps part from the full prefill by "
+          f"{res['prefill_decode_err']}")
+    cb_d, _ = serve_pool(deng, trace(cfg))
+    res["digital_same_as_solo"] = solo_matches(deng, trace(cfg)[:2],
+                                               cb_d.done)
+    print(f"[ssm-pool] layer 0's mixer on a 1024-token prefill, card "
+          f"against CPU (digital, TF32 off): max |diff| "
+          f"{m['max_abs_err']:.3g} of outputs up to {m['max_abs_out']:.3g} "
+          f"(held under {MIXER_RTOL:g} of it); prefill(200) + 8 decode "
+          f"steps against the full prefill's logits: "
+          f"{res['prefill_decode_err']:.3g} (held under 2e-3); pool against "
+          f"solo runs, counted, not held (the SSM scans the admission "
+          f"prefill's left pads): digital {res['digital_same_as_solo']} of "
+          f"2, raceit_q8 {res['raceit_same_as_solo']} of 2 ({device_desc})",
+          flush=True)
+    del deng, fparams
+    torch.cuda.empty_cache()
+    return res
+
+
+# ----------------------------------------------------------- phase 17
+
+JAMBA_LAYERS = 8  # of jamba-v0.1-52b's 32: one period (7 Mamba, 1 attention)
+
+
+def phase_hybrid_pool(device_desc: str) -> dict:
+    """jamba-v0.1-52b at its published width (d 4096, 32 heads and 8 KV
+    heads of 128, d_inner 8192 in 128 SSM heads, 16 experts of d_ff 14336
+    top-2, vocab 65536), 8 of its 32 layers, through the contiguous slot
+    pool: 8 slots, max_len 2048, admission pinned at 1024 tokens."""
+    from repro_torch.configs.base import ExecConfig
+    from repro_torch.models.moe import capacity
+    from repro_torch.serve import GenerationEngine
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng, fparams = build_model("jamba-v0.1-52b", n_layers=JAMBA_LAYERS,
+                               max_len=2048)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    cfg = eng.cfg
+    specs = [cfg.layer_spec(i) for i in range(cfg.n_layers)]
+    check((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+           cfg.d_inner, cfg.ssm_heads, cfg.ssm_state, cfg.n_experts,
+           cfg.top_k, cfg.d_ff, cfg.vocab_size, cfg.pos_emb)
+          == (4096, 32, 8, 128, 8192, 128, 128, 16, 2, 14336, 65536, "none")
+          and [m for m, _ in specs] == ["mamba"] * 4 + ["attn"]
+          + ["mamba"] * 3 and [f for _, f in specs] == ["dense", "moe"] * 4,
+          "jamba-v0.1-52b is not at its published width")
+    moe1 = eng.params["blocks"][1]["moe"]
+    check(all(moe1[k].data_ptr() == fparams["blocks"][1]["moe"][k].data_ptr()
+              and moe1[k].dtype == torch.float32 for k in moe1),
+          "the expert weights are not the float weights, uncopied")
+    n_attn = sum(m == "attn" for m, _ in specs)
+    n_params = count_parameters(fparams)
+    print("[hybrid-pool] plan:\n" + eng.explain_plan(), flush=True)
+    pool = functools.partial(serve_pool, prefill_len=1024)
+    pool(eng, trace(cfg, n_requests=1, lo=128, hi=128, n_new=2))  # warm
+    requests = trace(cfg, n_requests=16, lo=128, hi=1024, n_new=32)
+    times: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    launches = reset_launches()
+    cb, secs = pool(eng, requests, times)
+    counts = dict(launches)
+    for r in requests:
+        done = cb.done[r.rid]
+        check(done.error is None and len(done.result) == r.n_new == 32,
+              f"request {r.rid}: {done.error or len(done.result)}")
+    calls = cb.prefills + cb.decode_steps
+    pool_launches_check(counts, n_attn, calls)
+    tokens = sum(len(cb.done[r.rid].result) for r in requests)
+    res = dict(tokens=tokens, seconds=secs, tokens_per_s=tokens / secs,
+               init_s=init_s, init_peak_gib=init_gib, parameters=n_params,
+               prefills=cb.prefills, decode_steps=cb.decode_steps,
+               decode_tokens=cb.decode_tokens,
+               prefill_ms=1e3 * float(np.mean(times["prefill"])),
+               decode_ms=1e3 * float(np.mean(times["decode"])),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches=counts)
+    print(f"[hybrid-pool] jamba-v0.1-52b {JAMBA_LAYERS} of 32 layers (7 "
+          f"Mamba-2, 1 attention; 4 dense and 4 MoE FFNs), d4096 32H/8KV of "
+          f"128, d_inner 8192, 16 experts top-2 (d_ff 14336, float32), "
+          f"raceit_q8, {n_params / 1e9:.2f} B parameters (init {init_s:.1f} "
+          f"s, peak {init_gib:.2f} GiB), contiguous slot pool (8 slots, "
+          f"prefill_len 1024, max_len 2048): {tokens} tokens in {secs:.2f} "
+          f"s = {res['tokens_per_s']:.1f} tok/s; {cb.prefills} prefills "
+          f"(mean {res['prefill_ms']:.1f} ms), {cb.decode_steps} decode "
+          f"steps (mean {res['decode_ms']:.1f} ms), "
+          f"{cb.decode_tokens / cb.decode_steps:.2f} tokens a step; peak "
+          f"memory {res['peak_mem_gib']:.2f} GiB; contiguous attention "
+          f"launches {counts['acam_attention']} = 2 x {n_attn} x {calls} "
+          f"({device_desc})", flush=True)
+    names = expert_kernel_names(moe1, [capacity(cfg, 8),
+                                       capacity(cfg, 1024)])
+    res["profile"] = profile_run(
+        "the first 8 requests of the phase-17 trace, 16 new tokens each",
+        lambda: pool(eng, trace(cfg, n_requests=8, lo=128, hi=1024,
+                                n_new=16)),
+        lambda: pool(eng, trace(cfg, n_requests=1, lo=128, hi=128,
+                                n_new=2)),
+        {"acam_attention_paged": 0, "acam_attention": 2 * n_attn * (8 + 15),
+         "acam_attention_single": 0}, top=10, named={"expert bmm": names})
+    # the kernels against their plain versions on the whole one-period pool
+    few = trace(cfg, n_requests=4, lo=128, hi=1024, n_new=8)
+    cb_k, _ = pool(eng, few)
+    cb_p, _ = swapped_to_plain(lambda: pool(eng, few))
+    for r in few:
+        got, want = cb_k.done[r.rid].result.tolist(), \
+            cb_p.done[r.rid].result.tolist()
+        check(got == want, f"one-period pool request {r.rid}: kernel {got} "
+                           f"!= plain {want}")
+    # solo runs (their decode steps take the one-tile kernel at rep 4)
+    res["raceit_same_as_solo"] = solo_matches(eng, requests[:2], cb.done)
+    del eng
+    torch.cuda.empty_cache()
+    deng = GenerationEngine(cfg, fparams, ExecConfig(mode="digital"),
+                            max_len=2048, device=DEVICE)
+    fresh = lambda: trace(cfg, n_requests=8, lo=128, hi=1024, n_new=16)
+    cb_d, _ = pool(deng, fresh())
+    res["digital_same_as_solo"] = solo_matches(deng, fresh()[:2], cb_d.done)
+    print(f"[hybrid-pool] kernels equal to plain attention on the one-period "
+          f"pool ({len(few)} requests); pool against solo runs, counted, not "
+          f"held (the SSM scans left pads, capacity counts pad rows and idle "
+          f"slots): digital {res['digital_same_as_solo']} of 2, raceit_q8 "
+          f"{res['raceit_same_as_solo']} of 2 ({device_desc})", flush=True)
+    del deng, fparams, moe1
+    torch.cuda.empty_cache()
+    return res
+
+
 SMEM_PER_BLOCK = 232448  # bytes of shared memory one H100 block may use
 
 
@@ -2730,6 +3073,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     lap("6-8 bucketed, solo")
     api_res = phase_kernel_api(desc)
+    acam_res = phase_acam_oracle(desc)
     sqrt_d_res = phase_sqrt_d_api(desc)
     staged_res = phase_staged(gpt2, desc)
     del gpt2
@@ -2745,7 +3089,11 @@ def main() -> None:
     lap("14 moe pool")
     moe_paged_res = phase_moe_paged(desc)
     lap("15 moe paged")
-    print(f"[time] phases 3 to 15: {time.perf_counter() - t_start:.1f} s; "
+    ssm_res = phase_ssm_pool(desc)
+    lap("16 ssm pool")
+    hybrid_res = phase_hybrid_pool(desc)
+    lap("17 hybrid pool")
+    print(f"[time] phases 3 to 17: {time.perf_counter() - t_start:.1f} s; "
           + ", ".join(f"{k} {v:.1f} s" for k, v in laps.items()), flush=True)
 
     # each kernel's headline: its main-path decode shape in mode pot
@@ -2765,6 +3113,8 @@ def main() -> None:
                                    + pool_res["launches"]["acam_attention"]
                                    + gemma_res["launches"]["acam_attention"]
                                    + moe_pool_res["launches"][
+                                       "acam_attention"]
+                                   + hybrid_res["launches"][
                                        "acam_attention"]),
                 "acam_attention_single":
                     solo_res["launches"]["acam_attention_single"]}
@@ -2804,6 +3154,7 @@ def main() -> None:
                                     "solo": solo_res,
                                     "profile_contiguous": prof2_res,
                                     "kernel_api": api_res,
+                                    "acam_oracle": acam_res,
                                     "sqrt_d_api": sqrt_d_res,
                                     "staged": staged_res,
                                     "contiguous_pool": pool_res,
@@ -2811,6 +3162,8 @@ def main() -> None:
                                     "gemma3_pool": gemma_res,
                                     "moe_pool": moe_pool_res,
                                     "moe_paged": moe_paged_res,
+                                    "ssm_pool": ssm_res,
+                                    "hybrid_pool": hybrid_res,
                                     "laps": laps,
                                     "smem_d320": smem_rows}),
           flush=True)

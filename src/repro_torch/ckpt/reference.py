@@ -69,8 +69,11 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
             layers.append(_unstack(scan[j], r, device))
         else:
             layers.append(_tree(tail[t - n_full * P], device))
-        # a non-parametric LayerNorm is an empty dict, which leaves no path
-        for norm in ("norm1", "norm2"):
+        # a non-parametric LayerNorm is an empty dict, which leaves no path;
+        # a layer with no FFN has no norm2
+        norms = ("norm1",) if cfg.layer_spec(t)[1] == "none" else (
+            "norm1", "norm2")
+        for norm in norms:
             layers[-1].setdefault(norm, {})
     return {"embed": _tree(tree["embed"], device),
             "final_norm": _tree(tree.get("final_norm", {}), device),

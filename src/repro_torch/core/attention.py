@@ -10,15 +10,15 @@ matmul-2  out = s . V on int8 codes
 
 The staged `raceit_attention` is the bit-accurate oracle the fused kernels
 answer to. ``fidelity="int"`` multiplies the codes as integers (float64
-products, exact); the 4-bit nibble-table fidelity ``"acam"`` needs the
-two-variable multiply tables, which are not ported yet.
+products, exact); ``fidelity="acam"`` routes every scalar product through
+the compiled 4-bit nibble tables (slow, and equal to "int").
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .ops import LOGIT_FMT
+from .ops import LOGIT_FMT, mult8_codes
 from .quant import quantize_tensor, scale_product
 from .softmax import acam_softmax
 
@@ -54,15 +54,14 @@ def dd_matmul_codes(a_codes: torch.Tensor, b_codes: torch.Tensor,
                     fidelity: str = "int") -> torch.Tensor:
     """Data-dependent matmul on int8 codes: (..., M, K) x (..., K, N) -> int32.
 
+    fidelity="acam": each scalar product goes through the four compiled 4-bit
+    Compute-ACAM nibble tables + three adds (paper §IV-B), summed in int32.
     fidelity="int": plain integer dot products, here as float64 products of
-    the codes (exact below 2^53 on any device). fidelity="acam" (the 4-bit
-    Compute-ACAM nibble tables, bit-identical to "int") is not ported.
+    the codes (exact below 2^53 on any device; bit-identical).
     """
     if fidelity == "acam":
-        raise NotImplementedError(
-            "fidelity='acam' needs the 4-bit two-variable multiply tables, "
-            "which are not ported yet (ROADMAP, the staged oracle item); "
-            "fidelity='int' gives the same codes")
+        prod = mult8_codes(a_codes[..., :, :, None], b_codes[..., None, :, :])
+        return prod.sum(dim=-2, dtype=torch.int32)
     return torch.matmul(a_codes.double(), b_codes.double()).to(torch.int32)
 
 

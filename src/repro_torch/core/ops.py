@@ -2,21 +2,24 @@
 
 The port of `repro.core.ops`: the same formats and operator specs, compiled
 by the same numpy compiler, so every table equals the reference's entry for
-entry. The 4-bit two-variable multiply tables are not ported yet.
+entry: the 8-bit 1-var operators and the 4-bit 2-var nibble multiplies that
+make up an 8-bit multiply (`mult8_codes`: four nibble products and three
+adds).
 """
 from __future__ import annotations
 
 from functools import lru_cache
 
 import numpy as np
+import torch
 
-from .acam import AcamFunction
+from .acam import Acam2VarFunction, AcamFunction
 from .quant import FixedPointFormat, PoTFormat, ScaledFormat
 
 __all__ = [
     "int4s", "int4u", "int8s", "int8u",
     "GELU_FMT", "LOGIT_FMT", "PROB_FMT", "EXP_POT", "LOG_OUT_FMT",
-    "get_op", "OPS",
+    "get_op", "mult4_programs", "mult4_paper", "mult8_codes", "OPS",
 ]
 
 # ---- formats -------------------------------------------------------------
@@ -78,3 +81,51 @@ OPS = tuple(_OP_SPECS.keys())
 def get_op(name: str, encode: bool = True) -> AcamFunction:
     fn, in_fmt, out_fmt = _OP_SPECS[name]
     return AcamFunction.compile(name, fn, in_fmt, out_fmt, encode=encode)
+
+
+# ---- 4-bit multiplication (paper §IV-B, Figures 7 & 9(b)) -----------------
+
+@lru_cache(maxsize=None)
+def mult4_programs(encode: bool = True):
+    """The three nibble-product tables needed for signed 8-bit multiply:
+    ss (signed x signed), su (signed x unsigned), uu (unsigned x unsigned)."""
+    mul = lambda x, y: x * y  # noqa: E731
+    ss = Acam2VarFunction.compile("mult4_ss", mul, int4s, int4s,
+                                  FixedPointFormat(int_bits=7, frac_bits=0),
+                                  encode=encode)
+    su = Acam2VarFunction.compile("mult4_su", mul, int4s, int4u,
+                                  FixedPointFormat(int_bits=7, frac_bits=0),
+                                  encode=encode)
+    uu = Acam2VarFunction.compile("mult4_uu", mul, int4u, int4u,
+                                  FixedPointFormat(int_bits=8, frac_bits=0,
+                                                   signed=False),
+                                  encode=encode)
+    return ss, su, uu
+
+
+@lru_cache(maxsize=None)
+def mult4_paper(encode: bool = False):
+    """The exact configuration of paper Figure 7: x, y in 1-1-2; z in 1-2-1."""
+    f_in = FixedPointFormat(int_bits=1, frac_bits=2)
+    f_out = FixedPointFormat(int_bits=2, frac_bits=1)
+    return Acam2VarFunction.compile("mult4_fig7", lambda x, y: x * y, f_in,
+                                    f_in, f_out, encode=encode)
+
+
+def mult8_codes(x: torch.Tensor, y: torch.Tensor, hw: bool = False) -> torch.Tensor:
+    """8-bit signed multiply from four 4-bit ACAM products + three adds.
+
+    x, y: int codes in [-128, 127]. Returns x*y exactly (int32): p =
+    (xh*yh)<<8 + (xh*yl + yh*xl)<<4 + xl*yl with arithmetic high nibbles
+    and unsigned low nibbles.
+    """
+    ss, su, uu = mult4_programs()
+    x = x.to(torch.int32)
+    y = y.to(torch.int32)
+    xh, xl = x >> 4, x & 0xF
+    yh, yl = y >> 4, y & 0xF
+    p_hh = ss.apply_codes(xh, yh, hw=hw)
+    p_hl = su.apply_codes(xh, yl, hw=hw)
+    p_lh = su.apply_codes(yh, xl, hw=hw)
+    p_ll = uu.apply_codes(xl, yl, hw=hw)
+    return (p_hh << 8) + ((p_hl + p_lh) << 4) + p_ll

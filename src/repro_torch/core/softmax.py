@@ -14,8 +14,9 @@ PoT steps, ``"uniform"`` the Fig. 14 ablation (step 1 quantized uniformly).
 Every float32 step follows the reference's jitted graph: the PoT decode of
 step 1 is XLA's runtime exp (`PoTFormat.decode` on a tensor), the sum of
 step 2 its reduction order (`ref_sum`), the PoT encode of step 3 its log
-with fused multiply-adds. The match-line emulation (``hw=True``) and the
-device-noise variant (`noisy_acam_softmax`) are not ported yet.
+with fused multiply-adds. ``hw=True`` evaluates the three tables by their
+match lines (`repro_torch.core.acam.RangeArrays`), equal to the gathers.
+The device-noise variant (`noisy_acam_softmax`) is not ported yet.
 """
 from __future__ import annotations
 

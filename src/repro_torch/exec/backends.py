@@ -3,10 +3,11 @@
 The port of `repro.exec.backends`, restricted to what
 ``ExecConfig.serving()`` (fused or staged attention) and the digital
 baseline resolve on a decoder-only stack of global and sliding-window
-attention layers, served paged, from the contiguous slot pool, bucketed or
-solo: matmul ``digital``/``raceit_int`` (resident int8 weights
-go through `_resident_matmul` in both), activation ``digital``/
-``raceit_lut``, softmax ``digital``/``raceit_acam``, dd_matmul ``int``,
+attention layers and Mamba-2 mixers, served paged, from the contiguous slot
+pool, bucketed or solo: matmul ``digital``/``raceit_int`` (resident int8
+weights go through `_resident_matmul` in both), activation ``digital``/
+``raceit_lut``, softmax ``digital``/``raceit_acam``, dd_matmul ``int``/
+``acam`` (the nibble tables, under ``matmul_fidelity="acam"``),
 attention_prefill ``digital``/``raceit_staged``/``raceit_fused``, the
 attention_decode fused family (``raceit_fused``, ``raceit_gqa_native``, the
 per-row ``*_rows`` and the paged ``*_paged``, which serve contiguous
@@ -174,6 +175,12 @@ def _softmax_raceit_acam(plan, logits, axis):
 @register("dd_matmul", "int")
 def _dd_matmul_int(plan, a_codes, b_codes):
     return dd_matmul_codes(a_codes, b_codes, fidelity="int")
+
+
+@register("dd_matmul", "acam",
+          notes="4-bit nibble-table multiplies; bit-identical to 'int', slow")
+def _dd_matmul_acam(plan, a_codes, b_codes):
+    return dd_matmul_codes(a_codes, b_codes, fidelity="acam")
 
 
 # ---------------------------------------------------------------------------

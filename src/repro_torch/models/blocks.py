@@ -1,14 +1,19 @@
 """The layer stack: one parameter dict per layer, a Python loop over layers.
 
-The port of `repro.models.blocks` for decoder-only stacks of global
-(``attn``) and sliding-window (``attn_local``) attention layers with dense
-or Mixture-of-Experts (``moe``) FFNs, over contiguous KV caches of two
-lengths (max_len columns for global layers, a ring of min(max_len, window)
-for local ones) or block-paged pools (global layers only). The reference
-stacks each period position's parameters along a scan dimension
+The port of `repro.models.blocks` for decoder-only stacks whose mixers are
+global (``attn``) or sliding-window (``attn_local``) attention or Mamba-2
+(``mamba``), with dense, Mixture-of-Experts (``moe``) or no (``none``) FFN.
+Attention layers keep contiguous KV caches of two lengths (max_len columns
+for global layers, a ring of min(max_len, window) for local ones) or
+block-paged pools (global layers only); Mamba layers keep their SSM state
+and the last conv_width - 1 conv inputs, and have no paged form. The
+reference stacks each period position's parameters along a scan dimension
 (`blocks.init_stack`); the port keeps a plain list of per-layer dicts in
 layer order (`repro_torch.ckpt` unstacks the reference's layout) and runs
-the layers in a Python loop in place of ``jax.lax.scan``.
+the layers in a Python loop in place of ``jax.lax.scan``. Mamba layers
+ignore ``positions``, ``pad_lens`` and ``slot_lens``, as in the reference:
+the SSM scans through left pads, and a slot's state is overwritten when the
+slot is re-admitted.
 """
 from __future__ import annotations
 
@@ -19,28 +24,36 @@ import torch
 from ..configs.base import ExecConfig, ModelConfig
 from ..exec.plan import ExecPlan, as_plan
 from ..exec.plan import layer_plan as _mixer_plan
-from . import layers, moe as moe_mod
+from . import layers, moe as moe_mod, ssm
 
 Params = dict
 
 
+_ATTN = ("attn", "attn_local")
+
+
 def _check_layer(cfg: ModelConfig, mixer: str, ffn_kind: str) -> None:
-    if mixer not in ("attn", "attn_local") or ffn_kind not in ("dense", "moe"):
+    if mixer not in _ATTN + ("mamba",) or ffn_kind not in ("dense", "moe",
+                                                            "none"):
         raise NotImplementedError(
             f"layer kind ({mixer}, {ffn_kind}) is not ported yet; the port "
-            f"serves decoder-only attention stacks (global and local) with "
-            f"dense or MoE FFNs")
+            f"serves decoder-only stacks of attention (global and local) and "
+            f"Mamba-2 layers with dense, MoE or no FFN")
 
 
 def init_layer(gen, cfg: ModelConfig, mixer: str, ffn_kind: str, device,
                dtype) -> Params:
     _check_layer(cfg, mixer, ffn_kind)
-    p = {"norm1": layers.init_norm(cfg, device, dtype),
-         "attn": layers.init_attention(gen, cfg, device, dtype),
-         "norm2": layers.init_norm(cfg, device, dtype)}
+    p = {"norm1": layers.init_norm(cfg, device, dtype)}
+    if mixer == "mamba":
+        p["mamba"] = ssm.init_mamba_with_out(gen, cfg, device, dtype)
+    else:
+        p["attn"] = layers.init_attention(gen, cfg, device, dtype)
+    if ffn_kind != "none":  # no norm2 without an FFN, as in the reference
+        p["norm2"] = layers.init_norm(cfg, device, dtype)
     if ffn_kind == "moe":
         p["moe"] = moe_mod.init_moe(gen, cfg, device, dtype)
-    else:
+    elif ffn_kind == "dense":
         p["ffn"] = layers.init_ffn(gen, cfg, device, dtype)
     return p
 
@@ -56,19 +69,27 @@ def apply_layer(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
     _check_layer(cfg, mixer, ffn_kind)
     plan = _mixer_plan(as_plan(cfg, plan), mixer)
     h = layers.apply_norm(p["norm1"], x, cfg)
-    m, new_cache = layers.attention(
-        p["attn"], h, cfg=cfg, plan=plan, positions=positions,
-        local=(mixer == "attn_local"),
-        cache=cache["attn"] if cache else None, pad_lens=pad_lens,
-        pad_prompt_len=pad_prompt_len, slot_lens=slot_lens,
-        block_table=block_table, page_size=page_size, chunk_offs=chunk_offs)
-    x = x + m
-    h2 = layers.apply_norm(p["norm2"], x, cfg)
-    if ffn_kind == "moe":
-        x = x + moe_mod.moe(p["moe"], h2, cfg, plan)
+    if mixer == "mamba":
+        kind = "mamba"
+        m, new_cache = ssm.mamba(p["mamba"], h, cfg=cfg, plan=plan,
+                                 cache=cache["mamba"] if cache else None)
     else:
-        x = x + layers.ffn(p["ffn"], h2, cfg, plan)
-    return x, ({"attn": new_cache} if new_cache is not None else None)
+        kind = "attn"
+        m, new_cache = layers.attention(
+            p["attn"], h, cfg=cfg, plan=plan, positions=positions,
+            local=(mixer == "attn_local"),
+            cache=cache["attn"] if cache else None, pad_lens=pad_lens,
+            pad_prompt_len=pad_prompt_len, slot_lens=slot_lens,
+            block_table=block_table, page_size=page_size,
+            chunk_offs=chunk_offs)
+    x = x + m
+    if ffn_kind == "moe":
+        x = x + moe_mod.moe(p["moe"], layers.apply_norm(p["norm2"], x, cfg),
+                            cfg, plan)
+    elif ffn_kind == "dense":
+        x = x + layers.ffn(p["ffn"], layers.apply_norm(p["norm2"], x, cfg),
+                           cfg, plan)
+    return x, ({kind: new_cache} if new_cache is not None else None)
 
 
 def init_layer_cache(cfg: ModelConfig, mixer: str, batch: int, max_len: int,
@@ -81,19 +102,34 @@ def init_layer_cache(cfg: ModelConfig, mixer: str, batch: int, max_len: int,
     local one, so one stack's caches come in two lengths. Block-paged
     (``page_size``/``n_pages``, global layers only): k/v are an (n_pages,
     page_size, KV, hd) pool shared by every slot and ``idx`` is the
-    (batch,) per-slot fill; ``max_len`` then only documents intent.
+    (batch,) per-slot fill; ``max_len`` then only documents intent. A Mamba
+    layer: its SSM state (batch, H, P, N) float32 and the last conv_width -
+    1 inputs of its three convolutions in ``dtype``; it has no write index.
     """
-    if mixer not in ("attn", "attn_local"):
+    if mixer not in _ATTN + ("mamba",):
         raise NotImplementedError(
-            f"KV caches cover attention layers only; mixer {mixer!r} is not "
-            f"ported")
+            f"decode caches cover attention and Mamba layers; mixer "
+            f"{mixer!r} is not ported")
+    if page_size is not None and mixer != "attn":
+        raise NotImplementedError(
+            f"block-paged caches cover global attention layers only; "
+            f"mixer {mixer!r} keeps its own state layout (serve "
+            f"contiguous for this config)")
+    if mixer == "mamba":
+        W, GN = cfg.conv_width, cfg.ssm_groups * cfg.ssm_state
+        return {"mamba": {
+            "state": torch.zeros((batch, cfg.ssm_heads, cfg.ssm_headdim,
+                                  cfg.ssm_state), device=device,
+                                 dtype=torch.float32),
+            "conv_x": torch.zeros((batch, W - 1, cfg.d_inner), device=device,
+                                  dtype=dtype),
+            "conv_B": torch.zeros((batch, W - 1, GN), device=device,
+                                  dtype=dtype),
+            "conv_C": torch.zeros((batch, W - 1, GN), device=device,
+                                  dtype=dtype),
+        }}
     hd = cfg.resolved_head_dim
     if page_size is not None:
-        if mixer != "attn":
-            raise NotImplementedError(
-                f"block-paged caches cover global attention layers only; "
-                f"mixer {mixer!r} keeps its own state layout (serve "
-                f"contiguous for this config)")
         if n_pages is None:
             raise ValueError("paged caches need n_pages")
         shape = (n_pages, page_size, cfg.n_kv_heads, hd)

@@ -129,12 +129,14 @@ class Model:
         attention layer gets an (n_pages, page_size, KV, hd) pool shared by
         all slots (page 0 is the trash page) and a (n_slots,) fill vector;
         ``max_len`` then documents intent, capacity follows the block table
-        the caller threads in."""
+        the caller threads in. Mamba layers keep one state row per slot and
+        no write index."""
         if page_size is None:
             cache = self.init_cache(n_slots, max_len, dtype)
             for layer in cache:
-                layer["attn"]["idx"] = torch.zeros(
-                    (n_slots,), dtype=torch.int32, device=self.device)
+                if "attn" in layer:
+                    layer["attn"]["idx"] = torch.zeros(
+                        (n_slots,), dtype=torch.int32, device=self.device)
             return cache
         return blocks.init_stack_cache(self.cfg, n_slots, max_len,
                                        self.device,
@@ -210,11 +212,14 @@ class Model:
                                    page_size=page_size)
         return layers.unembed(params["embed"], x, self.cfg, self.plan), new_cache
 
-    @staticmethod
-    def _cache_index(cache: list) -> torch.Tensor:
-        """The write index of the first layer's cache (its max, per slot)."""
-        idx = cache[0]["attn"]["idx"]
-        return idx.amax() if idx.ndim else idx
+    def _cache_index(self, cache: list) -> torch.Tensor:
+        """The write index of the first attention layer's cache (its max,
+        per slot); zero for a stack with no attention layer."""
+        for layer in cache:
+            if "attn" in layer:
+                idx = layer["attn"]["idx"]
+                return idx.amax() if idx.ndim else idx
+        return torch.zeros((), dtype=torch.int32, device=self.device)
 
     def prefill_chunk(self, params: Params, tokens: torch.Tensor, cache: list,
                       chunk_offs: torch.Tensor, chunk_lens: torch.Tensor,

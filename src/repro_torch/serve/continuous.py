@@ -54,14 +54,16 @@ __all__ = ["ContinuousBatcher", "scatter_row"]
 
 def scatter_row(pool: list, row: list, slot: int) -> None:
     """Write a batch-1 contiguous cache (`Model.init_cache(1, ...)`) into
-    row ``slot`` of a contiguous slot cache, in place: every layer's k/v
-    row and its write index. The reference updates the donated pool
-    functionally; the port writes the one it holds."""
+    row ``slot`` of a contiguous slot cache, in place: every leaf of every
+    layer's cache (an attention layer's k/v row and its write index, a Mamba
+    layer's SSM state and conv rows). The reference updates the donated
+    pool functionally; the port writes the one it holds."""
     for p, r in zip(pool, row):
-        for name, leaf in p["attn"].items():
-            src = r["attn"][name]
-            leaf[slot] = (src[0] if src.ndim == leaf.ndim else src).to(
-                leaf.dtype)
+        for kind, leaves in p.items():
+            for name, leaf in leaves.items():
+                src = r[kind][name]
+                leaf[slot] = (src[0] if src.ndim == leaf.ndim else src).to(
+                    leaf.dtype)
 
 
 @dataclasses.dataclass
