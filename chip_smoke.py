@@ -175,6 +175,41 @@ Phases, in order; any failure raises and the script exits non-zero:
             tokens against solo runs on 2 requests, counted, not held (the
             solo decode takes the one-tile kernel at rep 4), in raceit_q8
             and, on the float weights, digital.
+18. encoder bert-base (12 layers, d 768, 12 heads, d_ff 3072) and
+            bert-large (24 layers, d 1024, 16 heads, d_ff 4096; vocab 30522,
+            bidirectional, learned positions) at their published widths,
+            nothing cut, resident int8 from a seed, through `Model.forward`
+            on 8 sequences of 384 tokens (the paper's length): ms per
+            forward (5 forwards), sequences/s, peak memory, the contiguous
+            launch count (2 x layers a forward), one forward under
+            torch.profiler; bert-large cut to 2 layers with the kernels
+            swapped for their plain versions gives bit-equal logits.
+19. whisper whisper-tiny at its published width (4 encoder and 4 decoder
+            layers, d 384, 6 heads, 1500 encoder frames, vocab 51865, tied
+            embeddings), resident int8, frame embeddings from a seed,
+            through `GenerationEngine.generate(enc_feats=...)`: 4 prompts
+            of 16..64 tokens one at a time, 32 new; every prefill must
+            launch the two-pass kernel 2 x (4 encoder + 4 cross) times and
+            the one-tile kernel 4 times (decoder self-attention, one key
+            block), every decode step the one-tile kernel 4 times and the
+            two-pass kernel 2 x 4 times (cross over 1500 keys); prefill and
+            decode ms, peak memory, one generate of 8 new tokens under
+            torch.profiler. Then prefill logits and tokens equal
+            with the kernels swapped for their plain versions, and in
+            digital mode prefill(24) + 16 decode steps within 2e-3 of
+            `Model.forward` (the reference's rule).
+20. mrope  qwen2-vl-2b at its published width, nothing cut (28 layers, d
+            1536, 12 heads over 2 KV heads of 128, d_ff 8960, vocab 151936,
+            tied embeddings, M-RoPE sections 16/24/24), resident int8,
+            through the paged batcher: 8 requests of 64..512 tokens, 32
+            new, 64-token pages and chunks; the paged launch count (2 x 28 x
+            (chunk calls + decode steps)), tokens/s, step ms, peak memory,
+            the first 4 requests (8 new) under torch.profiler. Then a
+            2-layer prefill with distinct t/h/w positions (a 2 x 8 x
+            8 patch grid and 32 text tokens) on the card against the CPU:
+            within 1e-4 of the largest logit in digital mode, and moved by
+            far more than that against text-only positions; raceit_q8
+            reported.
 
 Phase 9 also drives the float attention wrappers with the reference's
 default fold_scale=False at D 128 (the kernels divide by sqrt(d)), with
@@ -211,7 +246,13 @@ of 6 rows over 2048-key rings) and admission prefill (48 heads, 1024 x
 x 8 groups, 6 rows) and flat 64-row paged chunk; and at 4 query heads a KV
 head, jamba's, in every mode: its pool's decode (64 groups of 4 rows over
 2048 keys, per-group lengths) and admission prefill (32 heads, 1024 x 1024,
-left-pad mask, no local band). The build phase prints
+left-pad mask, no local band); and the encoder families' calls in every
+mode: bert-large's bidirectional attention (8 sequences x 16 heads, 384 x
+384, the all-true mask), whisper-tiny's encoder (6 heads, 1500 x 1500: three
+key blocks, the last of 476 real keys), its cross attention over 1500 keys
+at a 64-row prefill and at a decode step, and qwen2-vl-2b's paged GQA decode
+(8 slots x 2 groups of 6 rows, D 128) and 12-head chunk. The build phase
+prints
 each kernel's registers, static shared memory and spills (`nvcc -Xptxas
 -v`), and each attention kernel's dynamic shared memory at D 320 from the
 launchers' own layout code.
@@ -973,9 +1014,43 @@ def rep4_cases(gen, mode) -> list:
     ]
 
 
+def encoder_cases(gen, mode) -> list:
+    """The encoder families' calls, D 64 unless named: bert-large's
+    bidirectional attention (8 sequences x 16 heads, 384 x 384, the all-true
+    mask array, one row per sequence), whisper-tiny's encoder (6 heads,
+    1500 x 1500: three key blocks of 512, the last with 476 real keys, six
+    row blocks of 256) and its cross attention over the 1500 encoder keys
+    at a 64-token prefill and at a decode step (Sq 1, two-pass); then
+    qwen2-vl-2b's paged calls at D 128, 12 heads over 2 KV heads: the GQA
+    decode (8 slots x 2 groups of 6 rows, 16 pages of 64 keys, a zero-length
+    slot) and the flat 64-row chunk (12 heads a slot)."""
+    slots, mp, ps = 8, 16, 64
+    lens = gen.integers(1, mp * ps + 1, slots).tolist()
+    lens[5] = 0
+    return [
+        contiguous_case(f"bert-large bidir 384 {mode}", G=128, sq=384,
+                        sk=384, d=64, mode=mode, heads=16, pad=[0] * 8),
+        contiguous_case(f"whisper encoder bidir 1500 {mode}", G=6, sq=1500,
+                        sk=1500, d=64, mode=mode, heads=6, pad=[0]),
+        contiguous_case(f"whisper cross prefill 64 x 1500 {mode}", G=6,
+                        sq=64, sk=1500, d=64, mode=mode, heads=6, pad=[0]),
+        contiguous_case(f"whisper cross decode 1 x 1500 {mode}", G=6, sq=1,
+                        sk=1500, d=64, mode=mode, heads=6, pad=[0]),
+        attention_case(f"qwen2-vl paged gqa decode rep 6 {mode}",
+                       n_slots=slots, gps=2, sq=6, d=128, page_size=ps,
+                       max_pages=mp, mode=mode, lens=lens),
+        attention_case(f"qwen2-vl paged chunk {mode}", n_slots=slots,
+                       gps=12, sq=64, d=128, page_size=ps, max_pages=mp,
+                       mode=mode, chunk_mask=True,
+                       lens=gen.integers(64, mp * ps + 1, slots).tolist()),
+    ]
+
+
 def phase_kernels(device_desc: str) -> list:
     rows = []
     extra = []
+    for mode in ("pot", "pot_fine", "uniform"):
+        extra += encoder_cases(np.random.default_rng(SEED + 20), mode)
     for mode in ("pot", "pot_fine", "uniform"):
         extra += rep4_cases(np.random.default_rng(SEED + 19), mode)
     for mode in ("pot", "pot_fine", "uniform"):
@@ -2900,6 +2975,383 @@ def phase_hybrid_pool(device_desc: str) -> dict:
     return res
 
 
+# ----------------------------------------------------------- phase 18
+
+ENCODER_BATCH, ENCODER_SEQ = 8, 384  # the paper's 384-token sequences
+
+
+def encoder_widths(cfg) -> tuple:
+    return (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_ff,
+            cfg.vocab_size, cfg.causal)
+
+
+def timed_calls(fn, n: int) -> list:
+    """Milliseconds of ``n`` calls of ``fn()``, a synchronisation each side."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def phase_encoder(device_desc: str) -> dict:
+    """bert-base and bert-large at their published widths, nothing cut,
+    through `Model.forward` on 8 sequences of 384 tokens; then bert-large
+    cut to 2 layers with the contiguous kernels swapped for their plain
+    versions, logits bit-equal."""
+    from repro_torch.models import Model
+    res = {}
+    widths = {"bert-base": (12, 768, 12, 3072, 30522, False),
+              "bert-large": (24, 1024, 16, 4096, 30522, False)}
+    gen = np.random.default_rng(SEED + 22)
+    tokens = torch.from_numpy(gen.integers(
+        0, 30522, (ENCODER_BATCH, ENCODER_SEQ))).to(DEVICE)
+    batch = {"tokens": tokens}
+    for name, want in widths.items():
+        torch.cuda.reset_peak_memory_stats()
+        eng, fl = build_model(name, max_len=ENCODER_SEQ)
+        del fl  # the float weights; the forward reads the resident codes
+        cfg, model, params = eng.cfg, eng.model, eng.params
+        check(encoder_widths(cfg) == want, f"{name} is not at its width")
+        L = cfg.n_layers
+        fwd = torch.no_grad()(lambda: model.forward(params, batch))
+        logits = fwd()  # warm-up
+        check(logits.shape == (ENCODER_BATCH, ENCODER_SEQ, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()),
+              f"{name}: logits {tuple(logits.shape)} or non-finite")
+        launches = reset_launches()
+        ms = timed_calls(fwd, 5)
+        counts = dict(launches)
+        check(counts["acam_attention"] == 2 * L * 5
+              and counts["acam_attention_paged"] == 0
+              and counts["acam_attention_single"] == 0,
+              f"{name}: {counts} attention launches for 5 forwards")
+        prof = profile_run(f"one {name} forward (8 x 384)", fwd, fwd,
+                           {"acam_attention_paged": 0,
+                            "acam_attention": 2 * L,
+                            "acam_attention_single": 0})
+        r = dict(forward_ms=float(np.mean(ms)), forward_ms_all=ms,
+                 seqs_per_s=ENCODER_BATCH * 1e3 / float(np.mean(ms)),
+                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 launches=counts, profile=prof)
+        res[name] = r
+        print(f"[encoder] {name} {L}L d{cfg.d_model} raceit_q8 forward of "
+              f"8 x 384: {r['forward_ms']:.2f} ms (of 5: "
+              f"{', '.join(f'{t:.2f}' for t in ms)}) = "
+              f"{r['seqs_per_s']:.1f} sequences/s; peak memory "
+              f"{r['peak_mem_gib']:.2f} GiB; contiguous launches "
+              f"{counts['acam_attention']} = 2 x {L} x 5 ({device_desc})",
+              flush=True)
+        if name == "bert-large":
+            cfg2 = cfg.replace(n_layers=2)
+            m2 = Model(cfg2, eng.exec_cfg, device=DEVICE)
+            p2 = dict(params, blocks=params["blocks"][:2])
+            f2 = torch.no_grad()(lambda: m2.forward(p2, batch))
+            got, want_ = f2(), swapped_to_plain(f2)
+            check(torch.equal(got, want_), "bert-large 2 layers: kernel "
+                  "logits differ from the plain versions'")
+            print("[encoder] bert-large cut to 2 layers: logits with the "
+                  "kernels and with their plain versions bit-equal",
+                  flush=True)
+        del eng, model, params
+        torch.cuda.empty_cache()
+    res["launches"] = {k: sum(res[n]["launches"][k] for n in widths)
+                       for k in res["bert-base"]["launches"]}
+    return res
+
+
+# ----------------------------------------------------------- phase 19
+
+WHISPER_PREFILL = {"acam_attention": 2 * (4 + 4), "acam_attention_single": 4}
+WHISPER_DECODE = {"acam_attention": 2 * 4, "acam_attention_single": 4}
+
+
+def counted_engine(eng, log: list):
+    """Record each prefill and decode call's attention launches."""
+    from repro_torch.kernels import acam_attention as A
+    for kind, attr in (("prefill", "_prefill"), ("decode", "_decode")):
+        inner = getattr(eng, attr)
+
+        def wrapped(*a, _inner=inner, _kind=kind, **kw):
+            before = dict(A.launches)
+            out = _inner(*a, **kw)
+            log.append((_kind, {k: A.launches[k] - before[k]
+                                for k in before}))
+            return out
+        setattr(eng, attr, wrapped)
+
+
+def phase_whisper(device_desc: str) -> dict:
+    """whisper-tiny at its published width (4 encoder and 4 decoder layers,
+    d 384, 6 heads, 1500 encoder frames, vocab 51865), resident int8, frame
+    embeddings from a seed, through `GenerationEngine.generate`: 4 prompts
+    of 16..64 tokens one at a time, 32 new. Per call: a prefill launches
+    the two-pass kernel twice for each of the 4 encoder layers (1500 x
+    1500, bidirectional) and the 4 cross attentions (P x 1500), and the
+    one-tile kernel once for each decoder self-attention (P <= 256 rows,
+    one key block: the reference's one-tile rule); a decode step the
+    one-tile kernel once a layer (512-column cache) and the two-pass
+    kernel twice a layer (1 x 1500 cross). Then: prefill logits and
+    tokens equal with the kernels swapped for their plain versions, and on
+    the float weights in digital mode prefill(T0) + decode steps within
+    2e-3 of `Model.forward` (the reference's rule)."""
+    from repro_torch.models import Model
+    from repro_torch.serve import GenerationEngine
+    torch.cuda.reset_peak_memory_stats()
+    eng, fparams = build_model("whisper-tiny", max_len=512)
+    cfg = eng.cfg
+    check((cfg.n_encoder_layers, cfg.n_layers, cfg.d_model, cfg.n_heads,
+           cfg.encoder_len, cfg.vocab_size, cfg.is_encoder_decoder)
+          == (4, 4, 384, 6, 1500, 51865, True),
+          "whisper-tiny is not at its published width")
+    print("[whisper] plan:\n" + eng.explain_plan(), flush=True)
+    gen = np.random.default_rng(SEED + 23)
+    feats = torch.from_numpy(gen.standard_normal(
+        (1, cfg.encoder_len, cfg.d_model)).astype(np.float32)).to(DEVICE)
+    prompts = [gen.integers(0, cfg.vocab_size, int(gen.integers(16, 65))
+                            ).astype(np.int32) for _ in range(4)]
+    eng.generate(prompts[0][None, :16], 2, enc_feats=feats)  # warm-up
+    times, log = {}, []
+    timed_engine(eng, times)
+    counted_engine(eng, log)
+    launches = reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        outs = [eng.generate(p[None], 32, enc_feats=feats)[0]
+                for p in prompts]
+        torch.cuda.synchronize()
+    finally:
+        untimed_engine(eng)
+    secs = time.perf_counter() - t0
+    counts = dict(launches)
+    check(all(len(o) == 32 for o in outs), "a request returned short")
+    for kind, got in log:
+        want = WHISPER_PREFILL if kind == "prefill" else WHISPER_DECODE
+        check(all(got[k] == want.get(k, 0) for k in got),
+              f"a {kind} call launched {got}, expected {want}")
+    n_pre = sum(k == "prefill" for k, _ in log)
+    n_dec = sum(k == "decode" for k, _ in log)
+    check((n_pre, n_dec) == (4, 4 * 31), f"{n_pre} prefills, {n_dec} steps")
+    tokens = 4 * 32
+    res = dict(tokens=tokens, seconds=secs, tokens_per_s=tokens / secs,
+               prefills=n_pre, decode_steps=n_dec,
+               prefill_ms=1e3 * float(np.mean(times["prefill"])),
+               decode_ms=1e3 * float(np.mean(times["decode"])),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches=counts)
+    res["profile"] = profile_run(
+        f"one whisper-tiny generate ({len(prompts[0])} tokens, 8 new: 1 "
+        f"prefill + 7 decode steps)",
+        lambda: eng.generate(prompts[0][None], 8, enc_feats=feats),
+        lambda: eng.generate(prompts[0][None, :16], 2, enc_feats=feats),
+        {"acam_attention_paged": 0,
+         "acam_attention": WHISPER_PREFILL["acam_attention"]
+         + 7 * WHISPER_DECODE["acam_attention"],
+         "acam_attention_single": WHISPER_PREFILL["acam_attention_single"]
+         + 7 * WHISPER_DECODE["acam_attention_single"]})
+    print(f"[whisper] whisper-tiny 4+4L d384 raceit_q8 generate, 4 prompts "
+          f"of {[len(p) for p in prompts]} tokens, 32 new: {tokens} tokens "
+          f"in {secs:.2f} s = {res['tokens_per_s']:.1f} tok/s; prefill mean "
+          f"{res['prefill_ms']:.1f} ms, decode step mean "
+          f"{res['decode_ms']:.2f} ms; peak memory "
+          f"{res['peak_mem_gib']:.2f} GiB; launches {counts} = per prefill "
+          f"{WHISPER_PREFILL}, per decode step {WHISPER_DECODE} "
+          f"({device_desc})", flush=True)
+    # the kernels against their plain versions, the whole model
+    p = torch.from_numpy(prompts[1][None]).to(DEVICE)
+    run = lambda: eng.model.prefill(eng.params, p,
+                                    eng.model.init_cache(1, 512),
+                                    enc_feats=feats)[0]
+    with torch.no_grad():
+        got, want = run(), swapped_to_plain(run)
+    check(torch.equal(got, want), "whisper prefill: kernel logits differ "
+                                  "from the plain versions'")
+    toks = swapped_to_plain(lambda: eng.generate(prompts[1][None], 8,
+                                                 enc_feats=feats))[0]
+    check(toks.tolist() == outs[1][:8].tolist(),
+          f"whisper tokens: plain {toks.tolist()} != kernel "
+          f"{outs[1][:8].tolist()}")
+    # prefill then decode against forward, digital, float weights
+    from repro_torch.configs.base import ExecConfig
+    dm = Model(cfg, ExecConfig(mode="digital"), device=DEVICE)
+    tok = torch.from_numpy(prompts[2][None, :40].astype(np.int64)).to(DEVICE)
+    with torch.no_grad():
+        full = dm.forward(fparams, {"tokens": tok, "enc_feats": feats})
+        lg, cache = dm.prefill(fparams, tok[:, :24],
+                               dm.init_cache(1, 64), enc_feats=feats)
+        errs = [float((lg[:, 0] - full[:, 23]).abs().max())]
+        for t in range(24, 40):
+            lg, cache = dm.decode_step(fparams, tok[:, t:t + 1], cache)
+            errs.append(float((lg[:, 0] - full[:, t]).abs().max()))
+    res["prefill_decode_err"] = max(errs)
+    check(max(errs) < 2e-3, f"prefill + decode against forward: {errs}")
+    print(f"[whisper] prefill and decode with the kernels and with their "
+          f"plain versions: logits bit-equal, tokens equal; digital "
+          f"prefill(24) + 16 decode steps within {max(errs):.2e} of "
+          f"forward (rule 2e-3)", flush=True)
+    del eng, fparams, dm
+    torch.cuda.empty_cache()
+    return res
+
+
+# ----------------------------------------------------------- phase 20
+
+MROPE_RTOL = 1e-4  # card against CPU, float32 sums in other orders
+
+
+def mrope_positions(grid=(2, 8, 8), n_text=32):
+    """Qwen2-VL's three position channels for a (t, h, w) patch grid
+    followed by text: patch (i, j, k) sits at (i, j, k), text token n at
+    max + 1 + n in every channel. Returns (3, 1, S) int64."""
+    t, h, w = np.meshgrid(*(np.arange(n) for n in grid), indexing="ij")
+    vis = np.stack([t.ravel(), h.ravel(), w.ravel()])
+    text = vis.max() + 1 + np.arange(n_text)
+    pos = np.concatenate([vis, np.broadcast_to(text, (3, n_text))], 1)
+    return torch.from_numpy(pos[:, None, :].astype(np.int64))
+
+
+def phase_mrope_paged(device_desc: str) -> dict:
+    """qwen2-vl-2b at its published width, nothing cut (28 layers, d 1536,
+    12 heads over 2 KV heads of 128, d_ff 8960, vocab 151936, tied
+    embeddings, M-RoPE sections 16/24/24), resident int8, through the paged
+    batcher: 8 requests of 64..512 tokens, 32 new, 64-token pages and
+    chunks. Then a prefill with distinct t/h/w positions (a 2 x 8 x 8 patch
+    grid and 32 text tokens) on 2 layers: in digital mode on the float
+    weights the card against the CPU; in raceit_q8 on the card the kernels
+    against their plain versions, logits bit-equal (the card against the
+    CPU reported)."""
+    from repro_torch.configs.base import ExecConfig
+    from repro_torch.models import Model
+    from repro_torch.models.model import params_to, quantize_model_params
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng, fparams = build_model("qwen2-vl-2b", max_len=1024)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = eng.cfg
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size,
+           cfg.tie_embeddings, cfg.pos_emb, tuple(cfg.mrope_sections))
+          == (28, 1536, 12, 2, 128, 8960, 151936, True, "mrope",
+              (16, 24, 24)), "qwen2-vl-2b is not at its published width")
+    fparams = dict(fparams, blocks=fparams["blocks"][:2])
+    torch.cuda.empty_cache()
+    print("[mrope] plan:\n" + eng.explain_plan(), flush=True)
+    serve(eng, trace(cfg, n_requests=1, lo=64, hi=64, n_new=2))  # warm-up
+    requests = trace(cfg, n_requests=8, lo=64, hi=512, n_new=32)
+    launches = reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    cb, secs, times, peak_pages = serve(eng, requests, timed=True)
+    counts = dict(launches)
+    for r in requests:
+        done = cb.done[r.rid]
+        check(done.error is None and len(done.result) == r.n_new,
+              f"request {r.rid}: {done.error or len(done.result)}")
+    calls = cb.chunk_calls + cb.decode_steps
+    check(counts["acam_attention_paged"] == 2 * cfg.n_layers * calls
+          and counts["acam_attention"] == 0
+          and counts["acam_attention_single"] == 0,
+          f"{counts} attention launches for {calls} model calls")
+    tokens = sum(len(cb.done[r.rid].result) for r in requests)
+    res = dict(tokens=tokens, seconds=secs, tokens_per_s=tokens / secs,
+               init_s=init_s, decode_steps=cb.decode_steps,
+               chunk_calls=cb.chunk_calls,
+               decode_ms=1e3 * float(np.mean(times["decode"])),
+               chunk_ms=1e3 * float(np.mean(times["chunk"])),
+               peak_pages=peak_pages,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches=counts)
+    print(f"[mrope] qwen2-vl-2b 28L d1536 GQA 12:2 M-RoPE raceit_q8 paged "
+          f"(init {init_s:.1f} s): {tokens} tokens in {secs:.2f} s = "
+          f"{res['tokens_per_s']:.1f} tok/s; {cb.decode_steps} decode steps "
+          f"(mean {res['decode_ms']:.1f} ms), {cb.chunk_calls} chunk calls "
+          f"(mean {res['chunk_ms']:.1f} ms); peak pages {peak_pages}; peak "
+          f"memory {res['peak_mem_gib']:.2f} GiB; paged attention launches "
+          f"{counts['acam_attention_paged']} = 2 x 28 x {calls} "
+          f"({device_desc})", flush=True)
+    few = lambda: trace(cfg, n_requests=4, n_new=8)
+    launches = reset_launches()
+    cb_few = serve(eng, few())[0]
+    res["profile"] = profile_run(
+        f"the first 4 requests of the phase-20 trace, 8 new tokens each "
+        f"({cb_few.chunk_calls} chunk calls + {cb_few.decode_steps} decode "
+        f"steps)", lambda: serve(eng, few()),
+        lambda: serve(eng, trace(cfg, n_requests=1, lo=64, hi=64, n_new=2)),
+        dict(launches))
+    del eng
+    torch.cuda.empty_cache()
+    # distinct t/h/w channels, 2 layers: the card against the CPU
+    cfg2 = cfg.replace(n_layers=2)
+    pos = mrope_positions()
+    S = pos.shape[-1]
+    tok = torch.from_numpy(np.random.default_rng(SEED + 24).integers(
+        0, cfg.vocab_size, (1, S)))
+    out = {}
+    for mode, p in (("digital", fparams),
+                    ("raceit_q8", quantize_model_params(fparams))):
+        ec = (ExecConfig(mode="digital") if mode == "digital"
+              else ExecConfig.serving(mode="raceit"))
+        lg = {}
+        for dev in ("cuda", "cpu"):
+            m = Model(cfg2, ec, device=dev)
+            pd = params_to(p, dev)
+            with torch.no_grad():
+                lg[dev] = m.prefill(pd, tok.to(dev), m.init_cache(1, S),
+                                    positions=pos.to(dev))[0].cpu()
+                if mode == "digital" and dev == "cuda":
+                    text_only = m.prefill(
+                        pd, tok.to(dev), m.init_cache(1, S),
+                        positions=pos[0].to(dev))[0].cpu()
+                if mode == "raceit_q8" and dev == "cuda":
+                    from repro_torch.kernels import acam_attention as A
+                    before = dict(A.launches)
+                    run = lambda: m.prefill(pd, tok.to(dev),
+                                            m.init_cache(1, S),
+                                            positions=pos.to(dev))[0].cpu()
+                    got = run()
+                    hit = {k: A.launches[k] - before[k] for k in before}
+                    plain = swapped_to_plain(run)
+                    # two-pass: 2 launches a layer; one tile: 1
+                    check(hit["acam_attention"]
+                          + 2 * hit["acam_attention_single"]
+                          == 2 * cfg2.n_layers
+                          and hit["acam_attention_paged"] == 0,
+                          f"M-RoPE raceit_q8 prefill launched {hit}")
+                    check(torch.equal(got, plain),
+                          "M-RoPE raceit_q8 prefill: kernel logits differ "
+                          "from the plain versions'")
+        diff = float((lg["cuda"] - lg["cpu"]).abs().max())
+        out[mode] = dict(max_abs_diff=diff,
+                         max_abs_logit=float(lg["cpu"].abs().max()),
+                         top1_equal=bool(torch.equal(lg["cuda"].argmax(-1),
+                                                     lg["cpu"].argmax(-1))))
+        if mode == "digital":
+            moved = float((lg["cuda"] - text_only).abs().max())
+            out[mode]["text_only_diff"] = moved
+            check(diff <= MROPE_RTOL * out[mode]["max_abs_logit"],
+                  f"M-RoPE prefill card against CPU: {diff}")
+            check(moved > 10 * MROPE_RTOL * out[mode]["max_abs_logit"],
+                  f"distinct t/h/w channels move the logits by {moved} only")
+    res["mrope_prefill"] = out
+    print(f"[mrope] 2-layer prefill of a 2 x 8 x 8 patch grid + 32 text "
+          f"tokens with distinct t/h/w positions, card against CPU: digital "
+          f"max |diff| {out['digital']['max_abs_diff']:.3e} of logits up to "
+          f"{out['digital']['max_abs_logit']:.3f} (held to {MROPE_RTOL} of "
+          f"it; text-only positions move them by "
+          f"{out['digital']['text_only_diff']:.3e}); raceit_q8 "
+          f"{out['raceit_q8']['max_abs_diff']:.3e}, top-1 equal "
+          f"{out['raceit_q8']['top1_equal']} (reported); raceit_q8 on the "
+          f"card with the kernels and with their plain versions bit-equal",
+          flush=True)
+    del fparams
+    torch.cuda.empty_cache()
+    return res
+
+
 SMEM_PER_BLOCK = 232448  # bytes of shared memory one H100 block may use
 
 
@@ -3093,7 +3545,13 @@ def main() -> None:
     lap("16 ssm pool")
     hybrid_res = phase_hybrid_pool(desc)
     lap("17 hybrid pool")
-    print(f"[time] phases 3 to 17: {time.perf_counter() - t_start:.1f} s; "
+    encoder_res = phase_encoder(desc)
+    lap("18 encoder")
+    whisper_res = phase_whisper(desc)
+    lap("19 whisper")
+    mrope_res = phase_mrope_paged(desc)
+    lap("20 mrope paged")
+    print(f"[time] phases 3 to 20: {time.perf_counter() - t_start:.1f} s; "
           + ", ".join(f"{k} {v:.1f} s" for k, v in laps.items()), flush=True)
 
     # each kernel's headline: its main-path decode shape in mode pot
@@ -3107,7 +3565,8 @@ def main() -> None:
     launches = {"acam_attention_paged": (
                     main_res["launches"]
                     + gqa_res["launches"]["acam_attention_paged"]
-                    + moe_paged_res["launches"]["acam_attention_paged"]),
+                    + moe_paged_res["launches"]["acam_attention_paged"]
+                    + mrope_res["launches"]["acam_attention_paged"]),
                 "acam_attention": (bucket_res["launches"]["acam_attention"]
                                    + solo_res["launches"]["acam_attention"]
                                    + pool_res["launches"]["acam_attention"]
@@ -3115,9 +3574,14 @@ def main() -> None:
                                    + moe_pool_res["launches"][
                                        "acam_attention"]
                                    + hybrid_res["launches"][
+                                       "acam_attention"]
+                                   + encoder_res["launches"][
+                                       "acam_attention"]
+                                   + whisper_res["launches"][
                                        "acam_attention"]),
-                "acam_attention_single":
-                    solo_res["launches"]["acam_attention_single"]}
+                "acam_attention_single": (
+                    solo_res["launches"]["acam_attention_single"]
+                    + whisper_res["launches"]["acam_attention_single"])}
     kernels = []
     for name, case in heads.items():
         head = next(r for r in kernel_rows if r["case"] == case)
@@ -3164,6 +3628,9 @@ def main() -> None:
                                     "moe_paged": moe_paged_res,
                                     "ssm_pool": ssm_res,
                                     "hybrid_pool": hybrid_res,
+                                    "encoder": encoder_res,
+                                    "whisper": whisper_res,
+                                    "mrope_paged": mrope_res,
                                     "laps": laps,
                                     "smem_d320": smem_rows}),
           flush=True)

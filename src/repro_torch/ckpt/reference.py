@@ -1,7 +1,9 @@
 """Carry the reference's parameters across, without JAX.
 
 Two ways in, one layout out (the port's: ``{"embed", "final_norm",
-"blocks": [one dict per layer]}`` of tensors):
+"blocks": [one dict per layer]}`` of tensors, or for an encoder-decoder
+``{"embed", "final_norm", "encoder": [...], "enc_norm", "decoder":
+[...]}``):
 
 * `params_from_numpy` takes the reference parameter tree as nested dicts and
   lists of numpy arrays (``jax.tree.map(np.asarray, params)``);
@@ -12,7 +14,9 @@ Two ways in, one layout out (the port's: ``{"embed", "final_norm",
 
 The reference stacks each period position's layers along a leading scan
 dimension (``blocks/scan/<j>`` holds layers ``r*P + j``) and keeps the
-``n_layers % P`` remainder in ``blocks/tail``; both are unstacked into
+``n_layers % P`` remainder in ``blocks/tail`` (an encoder-decoder's
+``encoder`` and ``decoder`` stacks likewise, the encoder's of
+``n_encoder_layers`` layers of one period); both are unstacked into
 per-layer dicts in layer order; the empty parameter dicts of a
 non-parametric LayerNorm, which a checkpoint does not store, come back
 empty. Float weights come across as they are;
@@ -30,6 +34,7 @@ import torch
 
 from .. import resolve_device
 from ..configs.base import ModelConfig
+from ..models.model import encoder_config
 
 __all__ = ["params_from_numpy", "load_reference_checkpoint"]
 
@@ -55,15 +60,29 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
     """The reference's (scan-stacked) parameter tree -> the port's layout,
     on ``device`` (``cuda`` unless the caller asks for the CPU)."""
     device = resolve_device(device)
-    if cfg.is_encoder_decoder or "blocks" not in tree:
-        raise NotImplementedError("only decoder-only stacks are ported")
+    out = {"embed": _tree(tree["embed"], device),
+           "final_norm": _tree(tree.get("final_norm", {}), device)}
+    if cfg.is_encoder_decoder:
+        out["encoder"] = _layers(tree["encoder"], encoder_config(cfg),
+                                 cfg.n_encoder_layers, device)
+        out["enc_norm"] = _tree(tree.get("enc_norm", {}), device)
+        out["decoder"] = _layers(tree["decoder"], cfg, cfg.n_layers, device,
+                                 cross=True)
+    else:
+        out["blocks"] = _layers(tree["blocks"], cfg, cfg.n_layers, device)
+    return out
+
+
+def _layers(stack: dict, cfg: ModelConfig, n_layers: int, device,
+            cross: bool = False) -> list:
+    """One reference stack (``scan`` + ``tail``) -> per-layer dicts."""
     P = cfg.block_period
-    n_full = cfg.n_layers // P
+    n_full = n_layers // P
     # an empty list leaves no paths in a checkpoint, so either may be absent
-    scan = tree["blocks"].get("scan", [])
-    tail = tree["blocks"].get("tail", [])
+    scan = stack.get("scan", [])
+    tail = stack.get("tail", [])
     layers = []
-    for t in range(cfg.n_layers):
+    for t in range(n_layers):
         if t < n_full * P:
             r, j = divmod(t, P)
             layers.append(_unstack(scan[j], r, device))
@@ -73,11 +92,9 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
         # a layer with no FFN has no norm2
         norms = ("norm1",) if cfg.layer_spec(t)[1] == "none" else (
             "norm1", "norm2")
-        for norm in norms:
+        for norm in norms + (("norm_x",) if cross else ()):
             layers[-1].setdefault(norm, {})
-    return {"embed": _tree(tree["embed"], device),
-            "final_norm": _tree(tree.get("final_norm", {}), device),
-            "blocks": layers}
+    return layers
 
 
 def _unstack(t, r: int, device):

@@ -2,9 +2,10 @@
 
 The port of `repro.exec.backends`, restricted to what
 ``ExecConfig.serving()`` (fused or staged attention) and the digital
-baseline resolve on a decoder-only stack of global and sliding-window
-attention layers and Mamba-2 mixers, served paged, from the contiguous slot
-pool, bucketed or solo: matmul ``digital``/``raceit_int`` (resident int8
+baseline resolve on stacks of global and sliding-window attention layers
+(causal, bidirectional or cross attention) and Mamba-2 mixers, served
+paged, from the contiguous slot pool, bucketed or solo, or run through
+`Model.forward`: matmul ``digital``/``raceit_int`` (resident int8
 weights go through `_resident_matmul` in both), activation ``digital``/
 ``raceit_lut``, softmax ``digital``/``raceit_acam``, dd_matmul ``int``/
 ``acam`` (the nibble tables, under ``matmul_fidelity="acam"``),
@@ -188,11 +189,14 @@ def _dd_matmul_acam(plan, a_codes, b_codes):
 # ---------------------------------------------------------------------------
 # Interface: impl(plan, q, k, v, *, scale, q_offset, kind, window, chunk,
 #   probs_dtype, pad_lens); q (B, Sq, H, hd); k/v (B, Sk, KV, hd); kind in
-#   ("bidir", "local", "causal") here; pad_lens (B,) int32 marks each row's
+#   ("cross", "bidir", "local", "causal"); pad_lens (B,) int32 marks each row's
 #   left-pad key prefix (bucketed serving), masked on top of the structural
 #   mask.
 
 def _mask_fn(kind: str, sk: int, q_offset, window: int):
+    if kind == "cross":  # full cross attention: every encoder key
+        return lambda qi, ki: torch.ones((), dtype=torch.bool,
+                                         device=qi.device)
     if kind == "bidir":
         return lambda qi, ki: ki < sk + 0 * qi
     if kind == "local":  # causal sliding window

@@ -9,7 +9,10 @@ served in left-padded buckets of ``--slots`` by `BatchScheduler` over
 continuous batcher, block-paged when the model qualifies, or on the
 contiguous slot cache when ``--prefill-len`` pins the admission width (or
 the model has no paged cache form); ``--staged-attention`` serves the
-stage-by-stage oracle attention instead of the fused kernels. Weights are
+stage-by-stage oracle attention instead of the fused kernels. An
+encoder-decoder (whisper-tiny) serves bucketed, its decoder attending to
+zero cross keys and values as the reference's launcher leaves them (no
+frame embeddings are passed); the slot pools refuse it. Weights are
 made from ``--seed`` at the configuration's published width unless
 ``--ckpt`` names a reference checkpoint directory; ``--set`` overrides
 config fields (e.g. ``n_layers=2`` for a shallow run). Runs on

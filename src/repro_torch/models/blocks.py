@@ -1,8 +1,10 @@
 """The layer stack: one parameter dict per layer, a Python loop over layers.
 
-The port of `repro.models.blocks` for decoder-only stacks whose mixers are
-global (``attn``) or sliding-window (``attn_local``) attention or Mamba-2
-(``mamba``), with dense, Mixture-of-Experts (``moe``) or no (``none``) FFN.
+The port of `repro.models.blocks` for stacks whose mixers are global
+(``attn``) or sliding-window (``attn_local``) attention or Mamba-2
+(``mamba``), with dense, Mixture-of-Experts (``moe``) or no (``none``) FFN;
+an encoder-decoder's decoder layers (``cross=True``) add a norm and cross
+attention over the encoder's keys between the mixer and the FFN.
 Attention layers keep contiguous KV caches of two lengths (max_len columns
 for global layers, a ring of min(max_len, window) for local ones) or
 block-paged pools (global layers only); Mamba layers keep their SSM state
@@ -42,13 +44,16 @@ def _check_layer(cfg: ModelConfig, mixer: str, ffn_kind: str) -> None:
 
 
 def init_layer(gen, cfg: ModelConfig, mixer: str, ffn_kind: str, device,
-               dtype) -> Params:
+               dtype, cross: bool = False) -> Params:
     _check_layer(cfg, mixer, ffn_kind)
     p = {"norm1": layers.init_norm(cfg, device, dtype)}
     if mixer == "mamba":
         p["mamba"] = ssm.init_mamba_with_out(gen, cfg, device, dtype)
     else:
         p["attn"] = layers.init_attention(gen, cfg, device, dtype)
+    if cross:
+        p["norm_x"] = layers.init_norm(cfg, device, dtype)
+        p["cross"] = layers.init_attention(gen, cfg, device, dtype)
     if ffn_kind != "none":  # no norm2 without an FFN, as in the reference
         p["norm2"] = layers.init_norm(cfg, device, dtype)
     if ffn_kind == "moe":
@@ -65,7 +70,11 @@ def apply_layer(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
                 slot_lens: Optional[torch.Tensor] = None,
                 block_table: Optional[torch.Tensor] = None,
                 page_size: Optional[int] = None,
-                chunk_offs: Optional[torch.Tensor] = None):
+                chunk_offs: Optional[torch.Tensor] = None,
+                enc_kv: Optional[tuple] = None):
+    """One layer: the mixer, then (a decoder layer given ``enc_kv``, the
+    encoder's (k, v)) cross attention, then the FFN, each on a normed
+    input added to the residual stream."""
     _check_layer(cfg, mixer, ffn_kind)
     plan = _mixer_plan(as_plan(cfg, plan), mixer)
     h = layers.apply_norm(p["norm1"], x, cfg)
@@ -83,6 +92,12 @@ def apply_layer(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
             block_table=block_table, page_size=page_size,
             chunk_offs=chunk_offs)
     x = x + m
+    if "cross" in p and enc_kv is not None:
+        cx, _ = layers.attention(p["cross"],
+                                 layers.apply_norm(p["norm_x"], x, cfg),
+                                 cfg=cfg, plan=plan, positions=positions,
+                                 cross_kv=enc_kv)
+        x = x + cx
     if ffn_kind == "moe":
         x = x + moe_mod.moe(p["moe"], layers.apply_norm(p["norm2"], x, cfg),
                             cfg, plan)
@@ -146,10 +161,14 @@ def init_layer_cache(cfg: ModelConfig, mixer: str, batch: int, max_len: int,
     }}
 
 
-def init_stack(gen, cfg: ModelConfig, device, dtype) -> list:
-    """Per-layer parameter dicts in layer order."""
-    return [init_layer(gen, cfg, *cfg.layer_spec(i), device, dtype)
-            for i in range(cfg.n_layers)]
+def init_stack(gen, cfg: ModelConfig, device, dtype,
+               n_layers: Optional[int] = None, cross: bool = False) -> list:
+    """Per-layer parameter dicts in layer order; ``n_layers`` defaults to
+    ``cfg.n_layers`` (an encoder stack passes ``n_encoder_layers``)."""
+    n = cfg.n_layers if n_layers is None else n_layers
+    return [init_layer(gen, cfg, *cfg.layer_spec(i), device, dtype,
+                       cross=cross)
+            for i in range(n)]
 
 
 def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, device,
@@ -166,13 +185,16 @@ def apply_stack(params: list, x: torch.Tensor, *, cfg: ModelConfig,
                 pad_prompt_len=None, slot_lens: Optional[torch.Tensor] = None,
                 block_table: Optional[torch.Tensor] = None,
                 page_size: Optional[int] = None,
-                chunk_offs: Optional[torch.Tensor] = None):
-    """Run the stack; ``caches`` is `init_stack_cache`'s list (or None).
+                chunk_offs: Optional[torch.Tensor] = None,
+                enc_kv: Optional[list] = None):
+    """Run every layer of ``params``; ``caches`` is `init_stack_cache`'s
+    list (or None).
 
     ``pad_lens`` (B,) marks per-row left-pad prefixes of a bucket;
     ``block_table`` + ``page_size`` mark the caches as block-paged pools
     (one table for every layer); ``chunk_offs`` makes the call a
-    chunked-prefill step.
+    chunked-prefill step; ``enc_kv`` is a decoder stack's per-layer cross
+    (k, v) over the encoder output.
     """
     plan = as_plan(cfg, plan)
     new_caches = [] if caches is not None else None
@@ -183,7 +205,8 @@ def apply_stack(params: list, x: torch.Tensor, *, cfg: ModelConfig,
                             cache=caches[i] if caches is not None else None,
                             pad_lens=pad_lens, pad_prompt_len=pad_prompt_len,
                             slot_lens=slot_lens, block_table=block_table,
-                            page_size=page_size, chunk_offs=chunk_offs)
+                            page_size=page_size, chunk_offs=chunk_offs,
+                            enc_kv=enc_kv[i] if enc_kv is not None else None)
         if new_caches is not None:
             new_caches.append(nc)
     return x, new_caches

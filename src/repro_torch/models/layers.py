@@ -1,10 +1,12 @@
 """Transformer building blocks: norms, positions, attention, FFN.
 
-The port of `repro.models.layers` for decoder-only stacks of global and
-sliding-window (local) attention layers. Parameters are plain dicts of
-tensors, one dict per layer, and every layer call dispatches through the
-resolved `repro_torch.exec.ExecPlan` exactly as the reference does.
-Attention covers both KV caches of the reference:
+The port of `repro.models.layers`: global and sliding-window (local)
+self-attention, causal or bidirectional (encoders), and cross attention
+over an encoder's keys; learned, sinusoidal, RoPE and M-RoPE positions.
+Parameters are plain dicts of tensors, one dict per layer, and every layer
+call dispatches through the resolved `repro_torch.exec.ExecPlan` exactly
+as the reference does. Self-attention covers both KV caches of the
+reference:
 
 * the contiguous cache (B, L, KV, hd) with a scalar (or per-slot) write
   index: whole-prompt prefill, with left-padded buckets masked per row, and
@@ -21,6 +23,7 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..configs.base import ExecConfig, ModelConfig
@@ -95,18 +98,50 @@ def apply_norm(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # rotary positions
 # --------------------------------------------------------------------------
 
+def _rope_angles(positions: torch.Tensor, head_dim: int,
+                 theta: float) -> tuple:
+    """positions (..., S) -> cos/sin (..., S, head_dim/2)."""
+    dev = positions.device
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=dev) / head_dim
+    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                         device=dev), exps)
+    ang = positions[..., None].float() * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def mrope_sections(cfg: ModelConfig, head_dim: int) -> np.ndarray:
+    """M-RoPE's half-dim band widths, the reference's rescale for reduced
+    configs included: when the sections do not cover head_dim / 2, each
+    becomes max(1, sec * (hd/2) // sum) and the last takes the rest."""
+    secs = np.array(cfg.mrope_sections, np.int64)
+    if secs.sum() != head_dim // 2:
+        secs = np.maximum(1, secs * (head_dim // 2) // secs.sum())
+        secs[-1] = head_dim // 2 - secs[:-1].sum()
+    return secs
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                cfg: ModelConfig) -> torch.Tensor:
-    """x: (B, S, H, hd). positions: (B, S)."""
-    if cfg.pos_emb != "rope":
-        raise NotImplementedError(f"pos_emb={cfg.pos_emb!r} is not ported yet")
+    """x: (B, S, H, hd). positions: (B, S), or (3, B, S) for M-RoPE."""
     hd = x.shape[-1]
-    exps = torch.arange(0, hd, 2, dtype=torch.float32, device=x.device) / hd
-    freqs = 1.0 / torch.pow(torch.tensor(cfg.rope_theta, dtype=torch.float32,
-                                         device=x.device), exps)
-    ang = positions[..., None].float() * freqs
-    cos = torch.cos(ang)[:, :, None, :]  # (B, S, 1, hd/2)
-    sin = torch.sin(ang)[:, :, None, :]
+    if cfg.pos_emb == "mrope":
+        # M-RoPE (qwen2-vl): the half-dim bands split into (t, h, w)
+        # sections, band i taking its angles from position channel i; (B, S)
+        # positions are one channel broadcast to three (text tokens)
+        if positions.ndim == 2:
+            positions = positions[None].expand(3, *positions.shape)
+        # (3, B, S, hd/2)
+        cos, sin = _rope_angles(positions, hd, cfg.rope_theta)
+        cuts = np.cumsum(mrope_sections(cfg, hd))[:-1].tolist()
+        cos, sin = (torch.cat([torch.tensor_split(t, cuts, dim=-1)[i][i]
+                               for i in range(3)], -1) for t in (cos, sin))
+    elif cfg.pos_emb == "rope":
+        cos, sin = _rope_angles(positions, hd, cfg.rope_theta)  # (B, S, hd/2)
+    else:
+        raise NotImplementedError(f"apply_rope: pos_emb={cfg.pos_emb!r}")
+    cos = cos[:, :, None, :]  # (B, S, 1, hd/2)
+    sin = sin[:, :, None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
     return out.to(x.dtype)
@@ -481,12 +516,14 @@ def _write_contiguous(cache, k, v, sq: int, local: bool = False):
 def attention(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
               plan: ExecPlan | ExecConfig, positions: torch.Tensor,
               local: bool = False, cache: Optional[Params] = None,
+              cross_kv: Optional[tuple] = None,
               chunk: int = 1024, pad_lens: Optional[torch.Tensor] = None,
               pad_prompt_len=None, slot_lens: Optional[torch.Tensor] = None,
               block_table: Optional[torch.Tensor] = None,
               page_size: Optional[int] = None,
               chunk_offs: Optional[torch.Tensor] = None):
-    """Self-attention with an optional KV cache, contiguous or block-paged.
+    """Self- (or cross-) attention with an optional KV cache, contiguous or
+    block-paged.
 
     Contiguous: ``cache = {"k": (B, L, KV, hd), "v": ..., "idx": ()
     int32 or (B,)}``. A call with Sq > 1 is the prefill (through
@@ -510,16 +547,26 @@ def attention(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
     slot_lens[b])). Paged backends get the pool and table; any other
     backend is served by gathering the table's pages back to contiguous
     rows, a degrade, never an error.
+
+    ``cross_kv`` (k, v), each (B, Sk, KV, hd): an encoder's precomputed
+    keys and values. No RoPE, no cache write; every query length, Sq = 1
+    included, goes through ``plan.attention_prefill`` with mask kind
+    ``cross`` (all keys) and no pad mask. The mask kind is the call site's
+    config's: ``cross``, then ``bidir`` when ``cfg.causal`` is off (encoder
+    stacks pass a replaced config), then ``local``, then ``causal``.
     """
     plan = as_plan(cfg, plan)
     b, sq, _ = x.shape
     hd = cfg.resolved_head_dim
     q = _linear(x, p["wq"], plan, p.get("bq"))
-    k = _linear(x, p["wk"], plan, p.get("bk"))
-    v = _linear(x, p["wv"], plan, p.get("bv"))
-    if cfg.pos_emb in ("rope", "mrope"):
-        q = apply_rope(q, positions, cfg)
-        k = apply_rope(k, positions, cfg)
+    if cross_kv is None:
+        k = _linear(x, p["wk"], plan, p.get("bk"))
+        v = _linear(x, p["wv"], plan, p.get("bv"))
+        if cfg.pos_emb in ("rope", "mrope"):
+            q = apply_rope(q, positions, cfg)
+            k = apply_rope(k, positions, cfg)
+    else:
+        k, v = cross_kv  # encoder keys/values, precomputed
     scale = 1.0 / math.sqrt(hd)
 
     paged = block_table is not None
@@ -533,7 +580,7 @@ def attention(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
             raise NotImplementedError(
                 "block-paged KV does not cover local/ring layers (a ring "
                 "overwrite would need page recycling inside a slot)")
-        if cache is None:
+        if cache is None or cross_kv is not None:
             raise ValueError("block_table requires a self-attention KV cache")
         if slot_lens is None:
             raise ValueError("paged caches take their per-slot lengths from "
@@ -546,11 +593,11 @@ def attention(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
                                         scale, plan)
     else:
         new_cache = None
-        if cache is not None:
+        if cache is not None and cross_kv is None:
             new_cache = _write_contiguous(cache, k, v, sq, local)
             if sq == 1:  # decode attends through the cache
                 k, v = new_cache["k"], new_cache["v"]
-        if sq == 1 and cache is not None:
+        if sq == 1 and new_cache is not None:
             L = k.shape[1]
             lens = (slot_lens.to(torch.int32) if slot_lens is not None
                     else new_cache["idx"])
@@ -569,13 +616,15 @@ def attention(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
                                       pad_valid=pad_valid)
         else:
             q_off = cache["idx"] if cache is not None else 0
-            kind = ("bidir" if not cfg.causal
+            kind = ("cross" if cross_kv is not None
+                    else "bidir" if not cfg.causal
                     else "local" if local else "causal")
             o = plan.attention_prefill(q, k, v, scale=scale, q_offset=q_off,
                                        kind=kind, window=cfg.window,
                                        chunk=chunk,
                                        probs_dtype=_probs_dtype(cfg),
-                                       pad_lens=pad_lens)
+                                       pad_lens=(pad_lens if cross_kv is None
+                                                 else None))
 
     wq = p["wq"]
     heff = wq.shape[0] if isinstance(wq, QuantizedWeight) else wq.shape[1]
@@ -673,8 +722,10 @@ def ffn(p: Params, x: torch.Tensor, cfg: ModelConfig,
 # --------------------------------------------------------------------------
 
 def max_positions(cfg: ModelConfig) -> int:
-    """Rows of the learned position table (the reference's sizing rule)."""
-    return min(max(cfg.max_seq_len, 8192), 65_536)
+    """Rows of the learned position table (the reference's sizing rule):
+    8192 for an encoder, else max_seq_len clipped to [8192, 65536]."""
+    return min(max(cfg.max_seq_len if cfg.family != "encoder" else 8192,
+                   8192), 65_536)
 
 
 def init_embeddings(gen, cfg: ModelConfig, device, dtype) -> Params:
@@ -691,11 +742,18 @@ def init_embeddings(gen, cfg: ModelConfig, device, dtype) -> Params:
 
 def embed(p: Params, tokens: torch.Tensor, positions: torch.Tensor,
           cfg: ModelConfig) -> torch.Tensor:
+    """Token embeddings plus learned or sinusoidal positions; RoPE and
+    M-RoPE positions act in attention instead."""
     x = p["tok_emb"][tokens.long()]
     if cfg.pos_emb == "learned":
         x = x + p["pos_emb"][positions.long()]
-    elif cfg.pos_emb not in ("rope", "none"):
-        raise NotImplementedError(f"pos_emb={cfg.pos_emb!r} is not ported yet")
+    elif cfg.pos_emb == "sinusoidal":
+        hd = cfg.d_model
+        exps = torch.arange(0, hd, 2, dtype=torch.float32,
+                            device=x.device) / hd
+        freqs = 1.0 / torch.pow(torch.tensor(10_000.0, device=x.device), exps)
+        ang = positions[..., None].float() * freqs
+        x = x + torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(x.dtype)
     return x
 
 

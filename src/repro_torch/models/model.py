@@ -1,9 +1,11 @@
-"""Top-level decoder LM over a contiguous or block-paged KV cache.
+"""Top-level models: decoder LMs over a contiguous or block-paged KV cache,
+encoder-only stacks (bert) and encoder-decoders (whisper).
 
-The port of the serving half of `repro.models.model`:
+The port of the inference half of `repro.models.model`:
 
     model = Model(cfg, exec_cfg, device="cuda")
     params = model.init(torch.Generator(device).manual_seed(0))
+    logits = model.forward(params, {"tokens": ..., "enc_feats": ...})
     cache = model.init_cache(batch, max_len)            # solo / buckets
     logits, cache = model.prefill(params, prompts, cache, pad_lens=None)
     logits, cache = model.decode_step(params, token, cache)
@@ -17,8 +19,14 @@ The port of the serving half of `repro.models.model`:
                                       block_table=..., page_size=...)
 
 ``params`` is ``{"embed": {...}, "final_norm": {...}, "blocks": [layer
-dict, ...]}``; `quantize_model_params` turns weight matrices into resident
-`QuantizedWeight` codes bit-identical to the reference's.
+dict, ...]}``, or for an encoder-decoder ``{"embed", "final_norm",
+"encoder": [...], "enc_norm", "decoder": [...]}`` (decoder layers carry
+``norm_x`` and ``cross``); `quantize_model_params` turns weight matrices
+into resident `QuantizedWeight` codes bit-identical to the reference's.
+An encoder-decoder's cache is ``{"dec": [layer caches], "enc_kv": [(k, v)
+per decoder layer]}``: `prefill` with ``enc_feats`` fills ``enc_kv`` from
+the encoder; without them the decoder attends to the zeros `init_cache`
+made, as in the reference.
 """
 from __future__ import annotations
 
@@ -72,6 +80,13 @@ def quantize_model_params(params: Params) -> Params:
     return walk(params)
 
 
+def encoder_config(cfg: ModelConfig) -> ModelConfig:
+    """An encoder-decoder's encoder stack: bidirectional attention, dense
+    FFNs, ``n_encoder_layers`` of them."""
+    return cfg.replace(causal=False, mixer_pattern=("attn",),
+                       ffn_pattern=("dense",))
+
+
 def params_to(params, device):
     """Move a parameter tree (tensors and resident weights) to ``device``."""
     if isinstance(params, dict):
@@ -91,8 +106,6 @@ class Model:
         self.plan = as_plan(cfg, exec_cfg)
         self.exec_cfg = self.plan.exec_cfg
         self.device = resolve_device(device)
-        if cfg.is_encoder_decoder:
-            raise NotImplementedError("encoder-decoder models are not ported")
 
     @property
     def param_dtype(self):
@@ -106,16 +119,33 @@ class Model:
         """Fresh weights with the reference's distributions, drawn from
         ``gen`` (a generator on this model's device)."""
         cfg, dev, dt = self.cfg, self.device, self.param_dtype
-        return {"embed": layers.init_embeddings(gen, cfg, dev, dt),
-                "final_norm": layers.init_norm(cfg, dev, dt),
-                "blocks": blocks.init_stack(gen, cfg, dev, dt)}
+        p = {"embed": layers.init_embeddings(gen, cfg, dev, dt),
+             "final_norm": layers.init_norm(cfg, dev, dt)}
+        if cfg.is_encoder_decoder:
+            p["encoder"] = blocks.init_stack(gen, encoder_config(cfg), dev,
+                                             dt, n_layers=cfg.n_encoder_layers)
+            p["enc_norm"] = layers.init_norm(cfg, dev, dt)
+            p["decoder"] = blocks.init_stack(gen, cfg, dev, dt, cross=True)
+        else:
+            p["blocks"] = blocks.init_stack(gen, cfg, dev, dt)
+        return p
 
-    def init_cache(self, batch: int, max_len: int, dtype=None) -> list:
+    def init_cache(self, batch: int, max_len: int, dtype=None):
         """A contiguous KV cache: (batch, L, KV, hd) buffers and a scalar
         write index per layer; L is max_len for a global layer and
-        min(max_len, window) for a local layer's ring."""
-        return blocks.init_stack_cache(self.cfg, batch, max_len, self.device,
-                                       dtype or self.compute_dtype)
+        min(max_len, window) for a local layer's ring. An encoder-decoder's
+        is ``{"dec": [...], "enc_kv": [(k, v)] * n_layers}``, the cross
+        keys and values (batch, encoder_len, KV, hd) zeros until `prefill`
+        is given ``enc_feats``."""
+        cfg = self.cfg
+        dtype = dtype or self.compute_dtype
+        dec = blocks.init_stack_cache(cfg, batch, max_len, self.device, dtype)
+        if not cfg.is_encoder_decoder:
+            return dec
+        shape = (batch, cfg.encoder_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        zeros = lambda: torch.zeros(shape, device=self.device, dtype=dtype)
+        return {"dec": dec,
+                "enc_kv": [(zeros(), zeros()) for _ in range(cfg.n_layers)]}
 
     def init_slot_cache(self, n_slots: int, max_len: int, dtype=None,
                         page_size: Optional[int] = None,
@@ -130,7 +160,11 @@ class Model:
         all slots (page 0 is the trash page) and a (n_slots,) fill vector;
         ``max_len`` then documents intent, capacity follows the block table
         the caller threads in. Mamba layers keep one state row per slot and
-        no write index."""
+        no write index. Encoder-decoder stacks have no slot-pool form."""
+        if self.cfg.is_encoder_decoder:
+            raise NotImplementedError(
+                "slot-pool caches cover decoder-only stacks; encoder-"
+                "decoder serving stays on bucketed batching")
         if page_size is None:
             cache = self.init_cache(n_slots, max_len, dtype)
             for layer in cache:
@@ -148,34 +182,90 @@ class Model:
         pos = torch.arange(s, dtype=torch.int32, device=tokens.device) + offset
         return pos.expand(b, s)
 
+    def _encode(self, params: Params, enc_feats: torch.Tensor) -> torch.Tensor:
+        """The encoder stack over stub-frontend frame embeddings (B,
+        encoder_len, d_model): no positional embedding, then ``enc_norm``."""
+        x = enc_feats.to(device=self.device, dtype=self.compute_dtype)
+        x, _ = blocks.apply_stack(params["encoder"], x,
+                                  cfg=encoder_config(self.cfg),
+                                  plan=self.plan,
+                                  positions=self._positions(x[..., 0]),
+                                  caches=None)
+        return layers.apply_norm(params["enc_norm"], x, self.cfg)
+
+    def _enc_kv(self, params: Params, enc_out: torch.Tensor) -> list:
+        """Each decoder layer's cross (k, v) from the encoder output,
+        through the plan's matmul slot, with biases."""
+        proj = lambda c, w, b: layers._linear(enc_out, c[w], self.plan,
+                                              c.get(b))
+        return [(proj(lp["cross"], "wk", "bk"), proj(lp["cross"], "wv", "bv"))
+                for lp in params["decoder"]]
+
     def _trunk(self, params, tokens, positions, cache, pad_lens=None,
                pad_prompt_len=None, slot_lens=None, block_table=None,
-               page_size=None, chunk_offs=None):
+               page_size=None, chunk_offs=None, enc_feats=None):
         cfg = self.cfg
-        x = layers.embed(params["embed"], tokens, positions, cfg)
+        x = layers.embed(params["embed"], tokens,
+                         positions if positions.ndim == 2 else positions[0],
+                         cfg)
         x = x.to(self.compute_dtype)
-        x, new_cache = blocks.apply_stack(
-            params["blocks"], x, cfg=cfg, plan=self.plan, positions=positions,
-            caches=cache, pad_lens=pad_lens, pad_prompt_len=pad_prompt_len,
-            slot_lens=slot_lens, block_table=block_table,
-            page_size=page_size, chunk_offs=chunk_offs)
+        if cfg.is_encoder_decoder:
+            if cache is not None:  # cached cross k/v (prefill, decode)
+                enc_kv = cache["enc_kv"]
+            else:
+                enc_kv = self._enc_kv(params, self._encode(params, enc_feats))
+            x, new_dec = blocks.apply_stack(
+                params["decoder"], x, cfg=cfg, plan=self.plan,
+                positions=positions,
+                caches=cache["dec"] if cache is not None else None,
+                pad_lens=pad_lens, pad_prompt_len=pad_prompt_len,
+                slot_lens=slot_lens, enc_kv=enc_kv)
+            new_cache = (None if cache is None
+                         else {"dec": new_dec, "enc_kv": enc_kv})
+        else:
+            x, new_cache = blocks.apply_stack(
+                params["blocks"], x, cfg=cfg, plan=self.plan,
+                positions=positions, caches=cache, pad_lens=pad_lens,
+                pad_prompt_len=pad_prompt_len, slot_lens=slot_lens,
+                block_table=block_table, page_size=page_size,
+                chunk_offs=chunk_offs)
         return layers.apply_norm(params["final_norm"], x, cfg), new_cache
 
-    def prefill(self, params: Params, tokens: torch.Tensor, cache: list,
-                positions=None, pad_lens=None):
+    def forward(self, params: Params, batch: dict) -> torch.Tensor:
+        """Logits (B, S, V) of a whole sequence, no cache: the entry point
+        of encoder-only models. ``batch`` holds ``tokens`` (B, S), optional
+        ``positions`` (B, S) or (3, B, S) (M-RoPE), and ``enc_feats`` (B,
+        encoder_len, d_model) for an encoder-decoder."""
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        positions = batch.get("positions")
+        positions = (self._positions(tokens) if positions is None
+                     else torch.as_tensor(positions, device=self.device))
+        x, _ = self._trunk(params, tokens, positions, None,
+                           enc_feats=batch.get("enc_feats"))
+        return layers.unembed(params["embed"], x, self.cfg, self.plan)
+
+    def prefill(self, params: Params, tokens: torch.Tensor, cache,
+                enc_feats=None, positions=None, pad_lens=None):
         """Process the prompt; returns last-position logits and the cache.
 
         ``pad_lens`` (B,) int32: per-row left-pad prefix lengths (bucketed
         serving). Real tokens sit at positions shifted down by their row's
         pad count (pad columns clip to 0), and attention masks the pad
         columns per row, so a request's prefill does not depend on its
-        bucket-mates.
+        bucket-mates. ``positions`` may be (3, B, S) for M-RoPE. An
+        encoder-decoder given ``enc_feats`` runs the encoder and fills the
+        cache's cross keys and values, cast to the cache's dtype.
         """
         if positions is None:
             positions = self._positions(tokens)
             if pad_lens is not None:
                 positions = torch.clamp(
                     positions - pad_lens[:, None].to(torch.int32), min=0)
+        if self.cfg.is_encoder_decoder and enc_feats is not None:
+            enc_kv = self._enc_kv(params, self._encode(params, enc_feats))
+            cache = dict(cache, enc_kv=[
+                (k.to(ck.dtype), v.to(cv.dtype))
+                for (k, v), (ck, cv) in zip(enc_kv, cache["enc_kv"])])
         x, new_cache = self._trunk(params, tokens, positions, cache,
                                    pad_lens=pad_lens)
         return (layers.unembed(params["embed"], x[:, -1:], self.cfg, self.plan),
@@ -212,10 +302,10 @@ class Model:
                                    page_size=page_size)
         return layers.unembed(params["embed"], x, self.cfg, self.plan), new_cache
 
-    def _cache_index(self, cache: list) -> torch.Tensor:
+    def _cache_index(self, cache) -> torch.Tensor:
         """The write index of the first attention layer's cache (its max,
         per slot); zero for a stack with no attention layer."""
-        for layer in cache:
+        for layer in cache["dec"] if isinstance(cache, dict) else cache:
             if "attn" in layer:
                 idx = layer["attn"]["idx"]
                 return idx.amax() if idx.ndim else idx

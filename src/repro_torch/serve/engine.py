@@ -3,7 +3,8 @@
 The port of `repro.serve.engine`. `GenerationEngine.generate` serves one
 batch end to end on a contiguous cache (prefill, then greedy or temperature
 decoding): solo requests, or a left-padded bucket of `serve.batching` with
-per-row ``pad_lens``. The paged continuous batcher drives ``_decode`` and
+per-row ``pad_lens``; an encoder-decoder's ``enc_feats`` go to its
+prefill. The paged continuous batcher drives ``_decode`` and
 ``_prefill_chunk`` on a block-paged pool. The reference jits these entries
 with the cache donated; the port runs them eagerly and updates the caches
 in place.
@@ -47,7 +48,8 @@ class GenerationEngine:
     @torch.no_grad()
     def generate(self, prompts, n_new: int,
                  gen: Optional[torch.Generator] = None,
-                 pad_lens: Optional[np.ndarray] = None) -> np.ndarray:
+                 pad_lens: Optional[np.ndarray] = None,
+                 enc_feats=None) -> np.ndarray:
         """prompts: (B, P) int32 -> (B, n_new) generated ids.
 
         ``pad_lens`` (B,) int32: per-row left-pad prefix lengths of a
@@ -55,6 +57,9 @@ class GenerationEngine:
         step and real tokens keep their solo positions. Sampling at
         ``temperature > 0`` draws from ``gen`` (a generator on the engine's
         device) in place of the reference's per-step key splits.
+        ``enc_feats`` (B, encoder_len, d_model): an encoder-decoder's
+        encoder input; without them its decoder attends to zero cross keys
+        and values, as the reference's does.
         """
         prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.int64,
                                   device=self.device)
@@ -65,7 +70,7 @@ class GenerationEngine:
                                        device=self.device)
         cache = self.model.init_cache(B, self.max_len)
         logits, cache = self._prefill(self.params, prompts, cache,
-                                      pad_lens=pad_lens)
+                                      pad_lens=pad_lens, enc_feats=enc_feats)
         tok = self._sample(logits[:, -1], gen)
         out = [tok]
         pad_plen = (torch.tensor(P, dtype=torch.int32, device=self.device)
@@ -79,8 +84,9 @@ class GenerationEngine:
         return torch.stack(out, dim=1).cpu().numpy()
 
     @torch.no_grad()
-    def _prefill(self, params, tokens, cache, pad_lens=None):
-        return self.model.prefill(params, tokens, cache, pad_lens=pad_lens)
+    def _prefill(self, params, tokens, cache, pad_lens=None, enc_feats=None):
+        return self.model.prefill(params, tokens, cache, enc_feats=enc_feats,
+                                  pad_lens=pad_lens)
 
     @torch.no_grad()
     def _decode(self, params, token, cache, slot_lens=None, block_table=None,
