@@ -210,6 +210,33 @@ Phases, in order; any failure raises and the script exits non-zero:
             within 1e-4 of the largest logit in digital mode, and moved by
             far more than that against text-only positions; raceit_q8
             reported.
+21. noise  gpt2-large at its published width (36 layers, d 1280, 20
+            heads, vocab 50257), resident int8 from a seed, served with
+            ExecConfig.serving(mode="raceit", noise=nominal, seed 1) by the
+            paged batcher: 8 requests of 64..256 tokens, 16 new. The plan
+            must put raceit_noisy_int, raceit_noisy_lut, raceit_noisy_acam
+            and raceit_noisy_staged (both attention slots) on the raceit
+            slots, and no kernel may launch (the reference computes the
+            noisy path in jnp). The trace is served twice: the first run
+            makes the host draws (their time and the cache's bytes are
+            printed), the second is timed (tokens/s, decode and chunk ms,
+            peak memory) and must give the first run's tokens; the clean
+            staged plan serves the same trace for comparison, and the first
+            2 requests (4 new) are served again by both under
+            torch.profiler (device time by kernel, idle share). Then, at 2
+            layers: a zero-sigma NoiseConfig() gives prefill logits, paged
+            tokens and generate tokens bit-equal to the clean staged plan
+            (fused_attention=False); at worst_case, one call of each noisy
+            backend on the card and on the CPU on identical inputs, their
+            integer outputs equal (perturbed weight codes and their int32
+            product, LUT codes, PROB codes, the staged attention's int32
+            products, the decode's softmax on the card's own scores), the
+            draws the card injected equal to fresh host draws, and a
+            2-slot trace's tokens counted against the CPU's; and digital
+            serving with the decode attention on raceit_noisy_staged at
+            worst_case with fault_rate 0.5 on 2 slots retires exactly the
+            slot `fault_rows` names, the survivor's tokens equal to the
+            no-fault run's.
 
 Phase 9 also drives the float attention wrappers with the reference's
 default fold_scale=False at D 128 (the kernels divide by sqrt(d)), with
@@ -1388,9 +1415,10 @@ def trace(cfg, n_requests=16, lo=64, hi=512, n_new=32):
             for rid in range(n_requests)]
 
 
-def serve(eng, requests, timed=False):
+def serve(eng, requests, timed=False, n_slots=8):
     from repro_torch.serve import ContinuousBatcher
-    cb = ContinuousBatcher(eng, n_slots=8, page_size=64, prefill_chunk=64)
+    cb = ContinuousBatcher(eng, n_slots=n_slots, page_size=64,
+                           prefill_chunk=64)
     sync = (torch.cuda.synchronize if eng.device.type == "cuda"
             else (lambda: None))
     times = {"decode": [], "chunk": []}
@@ -1527,11 +1555,19 @@ def untimed_engine(eng):
 
 def shallow(eng, n_layers):
     """The same engine cut to its first ``n_layers`` layers."""
+    return with_exec(eng, eng.exec_cfg, n_layers)
+
+
+def with_exec(eng, exec_cfg, n_layers=None, device=None):
+    """``eng``'s weights (its first ``n_layers`` layers) served by another
+    plan, on ``device`` (default: the engine's)."""
     from repro_torch.serve import GenerationEngine
-    params = dict(eng.params, blocks=eng.params["blocks"][:n_layers])
-    return GenerationEngine(eng.cfg.replace(n_layers=n_layers), params,
-                            eng.exec_cfg, max_len=eng.max_len,
-                            device=eng.device)
+    cfg, params = eng.cfg, eng.params
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
+        params = dict(params, blocks=params["blocks"][:n_layers])
+    return GenerationEngine(cfg, params, exec_cfg, max_len=eng.max_len,
+                            device=device or eng.device)
 
 
 def launch_dicts():
@@ -3355,6 +3391,277 @@ def phase_mrope_paged(device_desc: str) -> dict:
 SMEM_PER_BLOCK = 232448  # bytes of shared memory one H100 block may use
 
 
+# ----------------------------------------------------------- phase 21
+
+NOISY_PLAN = {"matmul": "raceit_noisy_int", "activation": "raceit_noisy_lut",
+              "softmax": "raceit_noisy_acam",
+              "attention_prefill": "raceit_noisy_staged",
+              "attention_decode": "raceit_noisy_staged"}
+
+
+def tokens_of(cb) -> dict:
+    """A batcher's tokens by request id (None for a failed request)."""
+    return {rid: (None if r.result is None else r.result.tolist())
+            for rid, r in cb.done.items()}
+
+
+def noise_card_and_cpu(eng) -> dict:
+    """One call of each noisy backend at worst_case on identical inputs on
+    the card and on the CPU. Integer outputs must be equal bit for bit: the
+    perturbed weight codes and their int32 product, the LUT's jittered
+    codes, the Fig.-8 softmax's PROB codes (its own inputs and the decode's
+    scores as the card computed them), and the staged attention's two
+    int32 products. The draws the card injected are held to fresh host
+    draws made after the cache is emptied. Float outputs are reported."""
+    from repro_torch.core.ops import get_op
+    from repro_torch.core.quant import quantize_tensor
+    from repro_torch.exec import noisy as NB
+    from repro_torch.exec.backends import int_matmul
+    from repro_torch.exec.plan import ExecPlan
+    from repro_torch.hw import noise as N
+    cpu = with_exec(eng, eng.exec_cfg, device="cpu")
+    plans = {"card": eng.plan, "cpu": cpu.plan}
+    gen = torch.Generator().manual_seed(SEED + 21)
+    rnd = lambda *s: torch.randn(*s, generator=gen)
+    cfg = eng.cfg
+    d, H, hd = cfg.d_model, cfg.n_heads, cfg.d_model // cfg.n_heads
+    inputs = {"x": rnd(8, 64, d), "hidden": 2.0 * rnd(8, 64, cfg.d_ff),
+              "scores": 3.0 * rnd(8, H, 1, 1, 1024),
+              "q": rnd(1, 64, H, hd), "k": rnd(1, 64, H, hd),
+              "v": rnd(1, 64, H, hd), "qd": rnd(8, 1, H, hd),
+              "kd": rnd(8, 1024, H, hd), "vd": rnd(8, 1024, H, hd)}
+    w = eng.params["blocks"][0]["ffn"]["w1"]
+    nz = eng.exec_cfg.noise
+    seen = {"card": [], "cpu": []}
+    out = {}
+    for side, plan in plans.items():
+        dev = DEVICE if side == "card" else "cpu"
+        t = {k: v.to(dev) for k, v in inputs.items()}
+        wq = w.to(dev)
+        key = N.site_key(nz, "matmul_resident", tuple(wq.codes.shape))
+        codes = N.perturb_weight_codes(wq.codes, nz, key)
+        xq = quantize_tensor(t["x"].float(), bits=8)
+        r = {"codes": codes, "y32": int_matmul(
+            xq.codes.reshape(-1, d), codes), "matmul": plan.matmul(t["x"], wq)}
+        op = get_op(cfg.activation)
+        r["lut"] = op.apply_codes_noisy(
+            op.in_fmt.encode(t["hidden"]),
+            N.site_key(nz, f"activation_{op.name}",
+                       tuple(t["hidden"].shape)),
+            nz.acam_sigma, nz.readout_sigma)
+        r["softmax"] = plan.softmax(t["scores"], -1)
+        inner_dd, inner_sm = ExecPlan.dd_matmul, NB.noisy_acam_softmax
+        ExecPlan.dd_matmul = lambda self, a, b: (
+            seen[side].append(("dd", inner_dd(self, a, b))) or
+            seen[side][-1][1])
+
+        def softmax_seen(x, **kw):
+            y = inner_sm(x, **kw)
+            seen[side].append(("sm", x, kw, y))
+            return y
+        NB.noisy_acam_softmax = softmax_seen
+        try:
+            r["prefill"] = plan.attention_prefill(
+                t["q"], t["k"], t["v"], scale=hd ** -0.5, q_offset=0,
+                kind="causal", window=0, chunk=64)
+            r["decode"] = plan.attention_decode(
+                t["qd"], t["kd"], t["vd"], scale=hd ** -0.5,
+                kv_len=torch.tensor([1024, 700, 64, 1, 512, 1000, 3, 900],
+                                    dtype=torch.int32, device=dev))
+        finally:
+            ExecPlan.dd_matmul, NB.noisy_acam_softmax = inner_dd, inner_sm
+        out[side] = r
+        if side == "card":  # what the card injected, then fresh host draws
+            injected = {k: v.cpu() for k, v in N._DRAWS.items()
+                        if len(k) == 5}
+            N.clear_draw_cache()
+    fresh = {k: v for k, v in N._DRAWS.items() if len(k) == 4}
+    check(injected and all(torch.equal(v, fresh[k[:-1]])
+                           for k, v in injected.items()),
+          "the draws injected on the card differ from fresh CPU draws")
+    card, host = out["card"], out["cpu"]
+    for name in ("codes", "y32", "lut", "softmax"):
+        a, b = card[name].cpu(), host[name]
+        check(a.dtype == b.dtype and torch.equal(a, b),
+              f"noisy {name} on the card differs from the CPU")
+    dd_card = [s[1].cpu() for s in seen["card"] if s[0] == "dd"]
+    dd_cpu = [s[1] for s in seen["cpu"] if s[0] == "dd"]
+    check(len(dd_card) == len(dd_cpu) == 2
+          and all(torch.equal(a, b) for a, b in zip(dd_card, dd_cpu)),
+          "the staged attention's int32 products differ card / CPU")
+    replayed = 0
+    for s in seen["card"]:  # the card's softmax inputs, replayed on the CPU
+        if s[0] == "sm":
+            y = NB.noisy_acam_softmax(s[1].cpu(), **s[2])
+            check(torch.equal(s[3].cpu(), y),
+                  "a noisy softmax on the card differs from the CPU's")
+            replayed += 1
+    check(replayed == 2, f"{replayed} noisy softmax calls recorded")
+    err = {k: float((card[k].cpu() - host[k]).abs().max())
+           for k in ("matmul", "prefill", "decode")}
+    return dict(injected_draws=len(injected), max_abs_err=err,
+                softmax_replayed=replayed)
+
+
+def phase_noise(device_desc: str) -> dict:
+    """gpt2-large served through the noisy plan (nominal, seed 1) on the
+    paged batcher; zero sigma against the clean staged plan; worst_case on
+    the card against the CPU; faults at 2 slots."""
+    import dataclasses as dc
+    from repro_torch.configs.base import ExecConfig
+    from repro_torch.hw import noise as N
+    res = {}
+    base = build_engine()
+    cfg = base.cfg
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.vocab_size)
+          == (36, 1280, 20, 50257), "gpt2-large is not at published width")
+    # (a) the noisy plan at full width: draws at first use, then cached
+    eng = with_exec(base, ExecConfig.serving(
+        mode="raceit", noise=N.NoiseConfig.preset("nominal", seed=1)))
+    check(all(eng.plan.backend(s) == b for s, b in NOISY_PLAN.items()),
+          "the noisy plan does not route every raceit slot to a noisy "
+          "backend:\n" + eng.explain_plan())
+    print("[noise] plan:\n" + eng.explain_plan(), flush=True)
+    requests = lambda: trace(cfg, n_requests=8, lo=64, hi=256, n_new=16)
+    N.clear_draw_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    cb0, first_s, _, _ = serve(eng, requests(), timed=True)
+    draws = N.draw_cache_info()
+    counts = launch_counts()
+    check(all(v == 0 for v in counts.values()),
+          f"the noisy path launched kernels: {counts}")
+    reset_launches()
+    cb, secs, times, peak_pages = serve(eng, requests(), timed=True)
+    counts = launch_counts()
+    check(all(v == 0 for v in counts.values()),
+          f"the noisy path launched kernels: {counts}")
+    for r in requests():
+        done = cb.done[r.rid]
+        check(done.error is None, f"request {r.rid} failed: {done.error}")
+        check(len(done.result) == r.n_new, f"request {r.rid} returned "
+              f"{len(done.result)} tokens")
+        check(done.result.tolist() == cb0.done[r.rid].result.tolist(),
+              f"request {r.rid}: the noisy run is not reproducible")
+    tokens = sum(r.n_new for r in requests())
+    res["noisy"] = dict(
+        tokens=tokens, seconds=secs, tokens_per_s=tokens / secs,
+        first_seconds=first_s, decode_steps=cb.decode_steps,
+        chunk_calls=cb.chunk_calls,
+        decode_ms=1e3 * float(np.mean(times["decode"])),
+        chunk_ms=1e3 * float(np.mean(times["chunk"])),
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        draws=draws, launches=counts)
+    staged = with_exec(base, ExecConfig.serving(mode="raceit",
+                                                fused_attention=False))
+    serve(staged, trace(cfg, n_requests=1, lo=64, hi=64, n_new=2))
+    cbs, staged_s, staged_times, _ = serve(staged, requests(), timed=True)
+    same = sum(int(np.sum(cbs.done[r].result == cb.done[r].result))
+               for r in cb.done)
+    res["staged"] = dict(tokens_per_s=tokens / staged_s,
+                         decode_ms=1e3 * float(np.mean(staged_times["decode"])),
+                         chunk_ms=1e3 * float(np.mean(staged_times["chunk"])),
+                         same_tokens=same)
+    s = res["noisy"]
+    print(f"[noise] gpt2-large {cfg.n_layers}L d{cfg.d_model} raceit_q8 "
+          f"nominal noise (seed 1), paged: {tokens} tokens in {secs:.2f} s "
+          f"= {s['tokens_per_s']:.1f} tok/s; {cb.decode_steps} decode steps "
+          f"(mean {s['decode_ms']:.1f} "
+          f"ms), {cb.chunk_calls} chunk calls (mean {s['chunk_ms']:.1f} ms); "
+          f"peak memory {s['peak_mem_gib']:.2f} GiB; first run {first_s:.2f} "
+          f"s with {draws['draws']} draws in {draws['seconds']:.2f} s on the "
+          f"host, cache {draws['host_bytes'] / 2 ** 20:.1f} MiB host + "
+          f"{draws['device_bytes'] / 2 ** 20:.1f} MiB card; no kernel "
+          f"launched; clean staged plan on the same trace "
+          f"{res['staged']['tokens_per_s']:.1f} tok/s, decode "
+          f"{res['staged']['decode_ms']:.1f} ms, chunk "
+          f"{res['staged']['chunk_ms']:.1f} ms, {same} of {tokens} tokens "
+          f"equal ({device_desc})", flush=True)
+    few = lambda: trace(cfg, n_requests=2, lo=64, hi=256, n_new=4)
+    for name, e in (("noisy", eng), ("staged", staged)):
+        res[name]["profile"] = profile_run(
+            f"{name}: the first 2 requests of the phase-21 trace, 4 new",
+            lambda: serve(e, few()),
+            lambda: serve(e, trace(cfg, n_requests=1, lo=64, hi=64,
+                                   n_new=2)),
+            {k: 0 for k in KERNEL_NAMES}, top=10)
+    del eng, staged, cb0, cb, cbs
+    N.clear_draw_cache()
+    torch.cuda.empty_cache()
+    # (b) zero sigma: bit-equal to the clean staged plan
+    zero = with_exec(base, ExecConfig.serving(mode="raceit",
+                                              noise=N.NoiseConfig()), 2)
+    clean = with_exec(base, ExecConfig.serving(mode="raceit",
+                                               fused_attention=False), 2)
+    prompts = torch.from_numpy(np.random.default_rng(SEED + 21).integers(
+        0, cfg.vocab_size, (2, 96))).to(DEVICE)
+    lz = zero._prefill(zero.params, prompts, zero.model.init_cache(2, 1024))[0]
+    lc = clean._prefill(clean.params, prompts,
+                        clean.model.init_cache(2, 1024))[0]
+    check(torch.equal(lz, lc), "zero-sigma prefill logits differ from the "
+          "clean staged plan's")
+    small = lambda: trace(cfg, n_requests=4, lo=64, hi=160, n_new=8)
+    tz = tokens_of(serve(zero, small())[0])
+    tc = tokens_of(serve(clean, small())[0])
+    check(tz == tc, "zero-sigma tokens differ from the clean staged plan's")
+    check(np.array_equal(zero.generate(prompts.cpu().numpy(), 6),
+                         clean.generate(prompts.cpu().numpy(), 6)),
+          "zero-sigma generate differs from the clean staged plan's")
+    res["zero"] = dict(requests=len(tz), logits_equal=True)
+    # (c) worst_case: the card against the CPU
+    worst = with_exec(base, ExecConfig.serving(
+        mode="raceit", noise=N.NoiseConfig.preset("worst_case", seed=1)), 2)
+    res["card_cpu"] = noise_card_and_cpu(worst)
+    two = lambda: trace(cfg, n_requests=2, lo=64, hi=128, n_new=4)
+    t_card = tokens_of(serve(worst, two(), n_slots=2)[0])
+    t_cpu = tokens_of(serve(with_exec(worst, worst.exec_cfg, device="cpu"),
+                            two(), n_slots=2)[0])
+    res["card_cpu"]["same_tokens"] = sum(
+        int(np.sum(np.asarray(t_card[r]) == np.asarray(t_cpu[r])))
+        for r in t_card)
+    res["card_cpu"]["tokens"] = sum(len(t) for t in t_card.values())
+    N.clear_draw_cache()
+    # (d) worst_case faults at 2 slots (digital, decode attention noisy)
+    fl_eng, float_params = build_model("gpt2-large", n_layers=2,
+                                       quantize=False)
+    runs = {}
+    for rate in (0.5, 0.0):
+        nz = dc.replace(N.NoiseConfig.preset("worst_case"), fault_rate=rate)
+        ec = ExecConfig(mode="digital", noise=nz).with_ops(
+            attention_decode="raceit_noisy_staged")
+        cb = serve(with_exec(fl_eng, ec), two(), n_slots=2)[0]
+        runs[rate] = cb, tokens_of(cb)
+    nz = dc.replace(N.NoiseConfig.preset("worst_case"), fault_rate=0.5)
+    fmap = N.fault_rows(nz, N.site_key(nz, "decode_fault", (2,)), 2)
+    dead = {int(i) for i in np.flatnonzero(fmap.numpy())}
+    cbf, tf = runs[0.5]
+    check(cbf.dead_slots == dead and len(dead) == 1,
+          f"dead slots {cbf.dead_slots}, the fault map names {dead}")
+    failed = [rid for rid, t in tf.items() if t is None]
+    check(len(failed) == 1, f"{len(failed)} requests failed")
+    for rid, t in tf.items():
+        if t is not None:
+            check(t == runs[0.0][1][rid], f"request {rid}: the survivor's "
+                  f"tokens differ from the no-fault run's")
+    res["faults"] = dict(dead_slot=sorted(dead)[0], failed=failed,
+                         stage=cbf.done[failed[0]].error.stage)
+    print(f"[noise] 2 layers: zero sigma bit-equal to the clean staged plan "
+          f"(prefill logits, {len(tz)} paged requests, generate); "
+          f"worst_case card against CPU: {res['card_cpu']['injected_draws']} "
+          f"injected draws equal to fresh host draws, integer outputs equal "
+          f"(weight codes, int32 product, LUT codes, PROB codes, attention "
+          f"int32 products, {res['card_cpu']['softmax_replayed']} softmax "
+          f"calls replayed), float max abs err "
+          f"{res['card_cpu']['max_abs_err']}, tokens "
+          f"{res['card_cpu']['same_tokens']} of {res['card_cpu']['tokens']} "
+          f"equal (counted); fault_rate 0.5 on 2 slots: slot "
+          f"{res['faults']['dead_slot']} retired at stage "
+          f"{res['faults']['stage']}, as the fault map names, the survivor's "
+          f"tokens equal to the no-fault run's ({device_desc})", flush=True)
+    N.clear_draw_cache()
+    return res
+
+
 def smem_report(device_desc: str, d: int = 320) -> list:
     """Each attention kernel's dynamic shared memory at head dim ``d``, from
     the launchers' own layout code: the contiguous kernels at gemma3-4b's
@@ -3551,7 +3858,9 @@ def main() -> None:
     lap("19 whisper")
     mrope_res = phase_mrope_paged(desc)
     lap("20 mrope paged")
-    print(f"[time] phases 3 to 20: {time.perf_counter() - t_start:.1f} s; "
+    noise_res = phase_noise(desc)
+    lap("21 noise")
+    print(f"[time] phases 3 to 21: {time.perf_counter() - t_start:.1f} s; "
           + ", ".join(f"{k} {v:.1f} s" for k, v in laps.items()), flush=True)
 
     # each kernel's headline: its main-path decode shape in mode pot
@@ -3631,6 +3940,7 @@ def main() -> None:
                                     "encoder": encoder_res,
                                     "whisper": whisper_res,
                                     "mrope_paged": mrope_res,
+                                    "noise": noise_res,
                                     "laps": laps,
                                     "smem_d320": smem_rows}),
           flush=True)

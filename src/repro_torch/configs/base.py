@@ -147,7 +147,7 @@ class ExecConfig:
     # ("lm_head", "raceit_q8"), ...). Unsupported or unknown names degrade
     # (never raise) and show up in plan.explain(). Use .with_ops() sugar.
     op_overrides: tuple = ()
-    # device-variation injection: a frozen `repro.hw.noise.NoiseConfig`
+    # device-variation injection: a frozen `repro_torch.hw.noise.NoiseConfig`
     # (None = ideal devices). Typed as object to keep this module free of
     # hw imports; being a field of this frozen dataclass puts it in the
     # resolve_plan lru-cache key, so two configs differing only in noise

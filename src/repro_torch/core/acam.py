@@ -10,8 +10,10 @@ equal on every input:
   bits weighted MSB first, then the Gray decode (XOR prefix), all int32;
 * the **LUT path** (``hw=False``): the 2^n-entry table as a gather.
 
-The device-noise variants (`jitter_codes`, `RangeArrays.jittered`,
-`apply_codes_noisy`) are not ported yet.
+Under device variation (`repro_torch.hw.noise`): `jitter_codes` (the
+input-referred threshold jitter on searched or produced codes),
+`RangeArrays.jittered` (the per-cell form, on the compiled bounds) and
+`AcamFunction.apply_codes_noisy`, each drawing the reference's numbers.
 """
 from __future__ import annotations
 
@@ -27,7 +29,38 @@ from .quant import FixedPointFormat, PoTFormat, ScaledFormat
 
 Format = Union[FixedPointFormat, ScaledFormat, PoTFormat]
 
-__all__ = ["RangeArrays", "RectArrays", "AcamFunction", "Acam2VarFunction"]
+__all__ = ["RangeArrays", "RectArrays", "AcamFunction", "Acam2VarFunction",
+           "jitter_codes"]
+
+
+def _fmt_num_codes(fmt: Format) -> int:
+    return fmt.num_codes
+
+
+def _fmt_code_bounds(fmt: Format) -> tuple:
+    """Clip bounds for jittered codes of this format (signed domain for
+    fixed-point/scaled formats, [0, num_codes) for value-ordered PoT)."""
+    if isinstance(fmt, PoTFormat):
+        return 0, fmt.num_codes - 1
+    return fmt.code_min, fmt.code_max
+
+
+def jitter_codes(codes: torch.Tensor, sigma: float, key: np.ndarray,
+                 code_min: int, code_max: int) -> torch.Tensor:
+    """Additive integer Gaussian jitter on stored/searched codes.
+
+    The input-referred form of ACAM threshold-voltage variation: one
+    rounded N(0, sigma) draw per element (``key`` a `repro_torch.hw.prng`
+    key, the draw JAX's), added in int32 and clipped before the cast back,
+    so int8 codes saturate rather than wrap. ``sigma <= 0`` returns the
+    input unchanged.
+    """
+    if sigma <= 0.0:
+        return codes
+    from ..hw.noise import normal_offsets  # lazy: repro_torch.hw imports core
+    n = normal_offsets(key, tuple(codes.shape), sigma, codes.device)
+    out = torch.clamp(codes.to(torch.int32) + n, code_min, code_max)
+    return out.to(codes.dtype)
 
 
 def _fmt_to_position(fmt: Format, codes):
@@ -101,6 +134,20 @@ class RangeArrays(_DeviceArrays):
         lo, hi, mask = self.on(positions.device)
         p = positions.to(torch.int32)[..., None, None]  # (..., 1, 1)
         return self._decode((p >= lo) & (p < hi) & mask)  # (..., bits, R)
+
+    def jittered(self, sigma: float, key: np.ndarray) -> "RangeArrays":
+        """Per-cell Gaussian jitter on the compiled match-window bounds:
+        every stored [lo, hi) edge moves by round(N(0, sigma)) positions
+        (numpy bounds, the draws the reference's). Windows whose edges
+        cross never match. ``sigma <= 0`` returns self unchanged."""
+        if sigma <= 0.0:
+            return self
+        from ..hw import prng
+        kl, kh = prng.split(key)
+        s = np.float32(sigma)
+        dlo = np.round(s * prng.normal(kl, self.lo.shape)).astype(np.int32)
+        dhi = np.round(s * prng.normal(kh, self.hi.shape)).astype(np.int32)
+        return dataclasses.replace(self, lo=self.lo + dlo, hi=self.hi + dhi)
 
 
 @dataclasses.dataclass
@@ -185,6 +232,25 @@ class AcamFunction:
         if hw:
             return _fmt_from_position(self.out_fmt, self._hw(pos))
         return self.lut(codes.device)[pos.long()]
+
+    def apply_codes_noisy(self, codes: torch.Tensor, key: np.ndarray,
+                          in_sigma: float = 0.0,
+                          out_sigma: float = 0.0) -> torch.Tensor:
+        """`apply_codes` under device variation: ``in_sigma`` of threshold
+        jitter in the value-ordered position domain, ``out_sigma`` of
+        readout noise on the produced codes, clipped to the output format.
+        The key always splits in two (input, output); bit-identical to
+        `apply_codes` when both sigmas are zero."""
+        if in_sigma <= 0.0 and out_sigma <= 0.0:
+            return self.apply_codes(codes)
+        from ..hw import prng
+        kin, kout = prng.split(key)
+        pos = _fmt_to_position(self.in_fmt, codes)
+        pos = jitter_codes(pos, in_sigma, kin, 0,
+                           _fmt_num_codes(self.in_fmt) - 1)
+        out = self.lut(codes.device)[pos.long()]
+        return jitter_codes(out, out_sigma, kout,
+                            *_fmt_code_bounds(self.out_fmt))
 
     def __call__(self, x: torch.Tensor, hw: bool = False) -> torch.Tensor:
         codes = self.in_fmt.encode(x)

@@ -10,8 +10,8 @@ digitally (the row sum of the inputs, the column sum of the weights).
 ``adc_mode="exact"`` is a converter with enough resolution (the default:
 128 rows x 2-bit cells x 1-bit DAC, 385 levels); ``"quantize"`` applies an
 ``adc_bits`` uniform transfer. This module is the plain oracle;
-`repro_torch.kernels.acam_mvm` is the kernel with the same semantics. The
-device-noise variant (`noisy_crossbar_linear`) is not ported yet.
+`repro_torch.kernels.acam_mvm` is the kernel with the same semantics.
+`noisy_crossbar_linear` runs it on a device-varied array.
 
 Integer products run in float64 (exact below 2^53 on any device, and
 torch has no integer matmul on CUDA). The ADC follows the reference's
@@ -28,7 +28,7 @@ import torch
 from .quant import QuantizedTensor, quantize_tensor
 
 __all__ = ["CrossbarConfig", "bit_sliced_matmul", "crossbar_linear",
-           "sliced_matmul", "adc_step"]
+           "noisy_crossbar_linear", "sliced_matmul", "adc_step"]
 
 _F32 = np.float32
 
@@ -140,3 +140,19 @@ def crossbar_linear(x: torch.Tensor, wq: QuantizedTensor,
     if bias is not None:
         yf = yf + bias
     return yf
+
+
+def noisy_crossbar_linear(x: torch.Tensor, wq: QuantizedTensor, noise,
+                          key, bias: Optional[torch.Tensor] = None,
+                          cfg: CrossbarConfig = CrossbarConfig()
+                          ) -> torch.Tensor:
+    """`crossbar_linear` on a device-varied array: the stored weight codes
+    are perturbed by conductance spread and stuck-at cells in the ISAAC
+    unsigned domain the array programs
+    (`repro_torch.hw.noise.perturb_weight_codes`), then the bit-sliced MVM
+    runs unchanged. Bit-identical to `crossbar_linear` when the noise knobs
+    are zero."""
+    from ..hw.noise import perturb_weight_codes
+    codes = perturb_weight_codes(wq.codes, noise, key, bits=cfg.weight_bits)
+    return crossbar_linear(x, dataclasses.replace(wq, codes=codes), bias,
+                           cfg)

@@ -16,7 +16,7 @@ step 1 is XLA's runtime exp (`PoTFormat.decode` on a tensor), the sum of
 step 2 its reduction order (`ref_sum`), the PoT encode of step 3 its log
 with fused multiply-adds. ``hw=True`` evaluates the three tables by their
 match lines (`repro_torch.core.acam.RangeArrays`), equal to the gathers.
-The device-noise variant (`noisy_acam_softmax`) is not ported yet.
+`noisy_acam_softmax` runs the same dataflow on varied ACAM devices.
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ from . import ops
 from .ops import LOG_OUT_FMT, LOGIT_FMT
 from .quant import ref_sum
 
-__all__ = ["acam_softmax", "softmax_reference"]
+__all__ = ["acam_softmax", "noisy_acam_softmax", "softmax_reference"]
 
 _EXP_OPS = {"pot": "exp_pot", "pot_fine": "exp_pot_fine",
             "uniform": "exp_uniform"}
@@ -60,3 +60,36 @@ def acam_softmax(x: torch.Tensor, axis: int = -1, mode: str = "pot",
     d = torch.clamp(d, LOGIT_FMT.code_min, LOGIT_FMT.code_max)
     p = final_op.apply_codes(d, hw=hw)  # step 5
     return final_op.out_fmt.decode(p).movedim(-1, axis)
+
+
+def noisy_acam_softmax(x: torch.Tensor, axis: int = -1, mode: str = "pot",
+                       noise=None, key=None) -> torch.Tensor:
+    """`acam_softmax` under ACAM device variation: the three ACAM stages
+    (EXP, LOG, final EXP) through `AcamFunction.apply_codes_noisy` with
+    ``noise.acam_sigma`` of threshold jitter and ``noise.readout_sigma`` of
+    readout noise each; the adder lanes of steps 2 and 4 stay exact.
+    ``noise`` is a `repro_torch.hw.noise.NoiseConfig`, ``key`` the site's
+    key, split in three. Each stage draws over the operand in its own
+    layout (the row sum alone moves ``axis`` last, for XLA's order).
+    Delegates to the clean `acam_softmax` when both sigmas are zero.
+    """
+    if noise is None or (noise.acam_sigma <= 0.0
+                         and noise.readout_sigma <= 0.0):
+        return acam_softmax(x, axis=axis, mode=mode)
+    from ..hw import prng
+    exp_op = ops.get_op(_EXP_OPS[mode])
+    log_op = ops.get_op("log_fine" if mode == "pot_fine" else "log")
+    final_op = ops.get_op("exp_prob")
+    k1, k2, k3 = prng.split(key, 3)
+    sig_in, sig_out = noise.acam_sigma, noise.readout_sigma
+
+    xc = LOGIT_FMT.encode(x.float())
+    e_codes = exp_op.apply_codes_noisy(xc, k1, sig_in, sig_out)
+    e_vals = exp_op.out_fmt.decode(e_codes)
+    S = ref_sum(e_vals.movedim(axis, -1))[..., None].movedim(-1, axis)
+    s_codes = log_op.in_fmt.encode(S)
+    L = log_op.apply_codes_noisy(s_codes, k2, sig_in, sig_out)
+    d = xc - (L << (LOGIT_FMT.frac_bits - LOG_OUT_FMT.frac_bits))
+    d = torch.clamp(d, LOGIT_FMT.code_min, LOGIT_FMT.code_max)
+    p = final_op.apply_codes_noisy(d, k3, sig_in, sig_out)
+    return final_op.out_fmt.decode(p)

@@ -12,9 +12,10 @@ weights go through `_resident_matmul` in both), activation ``digital``/
 attention_prefill ``digital``/``raceit_staged``/``raceit_fused``, the
 attention_decode fused family (``raceit_fused``, ``raceit_gqa_native``, the
 per-row ``*_rows`` and the paged ``*_paged``, which serve contiguous
-callers too), ``raceit_staged`` and ``digital``, and lm_head ``digital``.
-Names, notes and capability predicates are the reference's, so both
-packages resolve the same plan.
+callers too), ``raceit_staged`` and ``digital``, and lm_head ``digital``/
+``raceit_q8``; the ``raceit_noisy_*`` family registers itself from
+`repro_torch.exec.noisy`. Names, notes and capability predicates are the
+reference's, so both packages resolve the same plan.
 """
 from __future__ import annotations
 
@@ -417,3 +418,18 @@ def _lm_head_digital(plan, x, w):
     if isinstance(w, QuantizedWeight):  # resident int8 unembedding
         return _resident_matmul(plan, x, w, None).float()
     return torch.einsum("bsd,dv->bsv", x.float(), w.float())
+
+
+@register("lm_head", "raceit_q8",
+          notes="fully-quantized lm head (beyond-paper; default stays "
+                "full-precision)")
+def _lm_head_raceit_q8(plan, x, w):
+    if isinstance(w, QuantizedWeight):
+        return _resident_matmul(plan, x, w, None).float()
+    return _matmul_raceit_int(plan, x, w, None).float()
+
+
+# the raceit_noisy_* family registers itself against the same slots from
+# its own module, reusing the helpers above; importing it here (after every
+# helper is defined) keeps `_ensure_backends_loaded` the single load point
+from . import noisy  # noqa: E402,F401

@@ -9,7 +9,9 @@ served in left-padded buckets of ``--slots`` by `BatchScheduler` over
 continuous batcher, block-paged when the model qualifies, or on the
 contiguous slot cache when ``--prefill-len`` pins the admission width (or
 the model has no paged cache form); ``--staged-attention`` serves the
-stage-by-stage oracle attention instead of the fused kernels. An
+stage-by-stage oracle attention instead of the fused kernels;
+``--noise PRESET|SIGMA`` (and ``--noise-seed``) serves on device-varied
+arrays through the ``raceit_noisy_*`` backends. An
 encoder-decoder (whisper-tiny) serves bucketed, its decoder attending to
 zero cross keys and values as the reference's launcher leaves them (no
 frame embeddings are passed); the slot pools refuse it. Weights are
@@ -90,6 +92,16 @@ def main(argv=None):
                          "raceit_staged attention_decode=raceit_staged)")
     ap.add_argument("--exec-plan", nargs="*", default=[],
                     metavar="SLOT=BACKEND")
+    ap.add_argument("--noise", default=None, metavar="PRESET|SIGMA",
+                    help="serve on device-varied analog arrays: a "
+                         "repro_torch.hw.noise preset (clean/nominal/"
+                         "worst_case) or a float scale of the nominal "
+                         "profile; routes the raceit slots to the "
+                         "raceit_noisy_* backends (fused kernels degrade, "
+                         "reason in the plan table)")
+    ap.add_argument("--noise-seed", type=int, default=0,
+                    help="device-variation seed (--noise); one seed = one "
+                         "simulated chip, reproducibly")
     ap.add_argument("--set", nargs="*", default=[])
     args = ap.parse_args(argv)
 
@@ -122,10 +134,15 @@ def main(argv=None):
     else:
         gen = torch.Generator(device=device).manual_seed(args.seed)
         params = Model(cfg, device=device).init(gen)
+    noise = None
+    if args.noise is not None:
+        from repro_torch.hw.noise import NoiseConfig
+        noise = NoiseConfig.parse(args.noise, seed=args.noise_seed)
+        print(f"[serve] device noise: {noise}")
     exec_cfg = ExecConfig.serving(
         mode="raceit" if args.mode.startswith("raceit") else "digital",
         fused_attention=not args.staged_attention,
-        op_overrides=parse_exec_plan(args.exec_plan))
+        op_overrides=parse_exec_plan(args.exec_plan), noise=noise)
     if args.mode == "raceit_q8":
         params = quantize_model_params(params)
         print("[serve] weights quantized to resident int8 crossbar codes")

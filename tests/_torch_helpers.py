@@ -16,13 +16,21 @@ def port_model_config(cfg):
     return port_base.ModelConfig(**dataclasses.asdict(cfg))
 
 
+def port_noise_config(nz):
+    """The port's NoiseConfig with every field of the reference's."""
+    if nz is None:
+        return None
+    from repro_torch.hw.noise import NoiseConfig
+    return NoiseConfig(**dataclasses.asdict(nz))
+
+
 def port_exec_config(ec):
     """The port's ExecConfig with the reference's declarative fields."""
     return port_base.ExecConfig(
         mode=ec.mode, softmax_mode=ec.softmax_mode,
         matmul_fidelity=ec.matmul_fidelity, act_bits=ec.act_bits,
         weight_bits=ec.weight_bits, fused_attention=ec.fused_attention,
-        op_overrides=ec.op_overrides)
+        op_overrides=ec.op_overrides, noise=port_noise_config(ec.noise))
 
 
 def to_numpy(tree):

@@ -4,9 +4,10 @@ dense decoders added with it, against the reference.
 * The contiguous cases of tests/test_serve_continuous.py (``paged=False``,
   an explicit ``prefill_len``, the jointly infeasible queue, the fully
   quarantined pool): the same tokens, errors and counters as the
-  reference's batcher. The reference makes its decode faults with its noise
-  model, which the port does not have; the port's decode step is made to
-  return non-finite logits on the same rows.
+  reference's batcher. Here the port's decode step is made to return
+  non-finite logits on the rows the reference's noise model faults; the
+  same scenarios with the port's own injected faults are in
+  tests/test_torch_noise_serving.py.
 * raceit_q8 serving of tiny gpt2-large, command-r-35b, olmo-1b
   (non-parametric LayerNorm, tied embeddings, SiLU-GLU, RoPE) and
   starcoder2-15b (qkv biases, GQA, GELU) through the contiguous pool and
