@@ -14,7 +14,9 @@ Phases, in order; any failure raises and the script exits non-zero:
             kernel (single_tile), with paged edge shapes (a zero-length group,
             lengths ending mid-page, pages of 8, 96, 1056 and 2048 keys, D 36,
             70 rows, a page whose row sum only the reference's order of its
-            run totals gets right) and contiguous edge shapes (300, 600 and
+            run totals gets right, the tensor-parallel exact calls' cmax
+            floors: a flat decode at 250 and a GQA decode at 90) and
+            contiguous edge shapes (300, 600 and
             1100 keys, zero-length groups, fully masked rows, 70 rows, causal
             at q_offset 9, D 36, cmax floors; the one-tile kernel at 70 rows,
             zero-length GQA groups and 64 keys); out32 and cmax must be
@@ -237,6 +239,31 @@ Phases, in order; any failure raises and the script exits non-zero:
             worst_case with fault_rate 0.5 on 2 slots retires exactly the
             slot `fault_rows` names, the survivor's tokens equal to the
             no-fault run's.
+22. tp     tensor and expert parallelism, run after phase 15 (it reuses
+            phase 15's llama4-scout engine): every shard on cuda:0, each
+            mesh spec built onto ["cuda:0"] * n. (a) Each TP backend
+            (raceit_fused_tp prefill and decode, raceit_gqa_tp) against its
+            single-device backend on the same float operands, bit for bit:
+            causal and padded-bucket prefill, contiguous flat decode with
+            per-row lengths, paged flat decode and a 64-row chunk, and for
+            GQA the contiguous and paged GQA decode, at gpt2-large's shapes
+            (20 heads of 64, model 2 and 4) and command-r-35b's (64 heads
+            over 8 KV heads of 128, model 2, 4 and 8); every TP call makes
+            two wrapper calls a shard (probe and exact), and its time (CUDA
+            events, host included) is printed beside the single call's.
+            (b) gpt2-large at its published width (36 layers), resident
+            int8, paged (8 slots, 64-token pages and chunks, max_len 1024),
+            4 requests of 64..256 tokens, 16 new, served with no mesh and
+            with model=2 on the same weights: tokens equal, 2 x 2 x 2 x 36
+            paged launches a model call, tokens/s, decode and chunk ms and
+            peak memory of both. (c) llama4-scout (4 of 48 layers), model=2
+            (raceit_gqa_tp, EP over two shards): layer 0's routing of each
+            EP shard in a first chunk call routed again on the card and on
+            the CPU, equal bit for bit, each shard at its own capacity;
+            4 requests, 8 new, with and without the mesh: the TP launch
+            count, tokens/s, step ms, and the tokens equal to no mesh
+            counted, not held (with EP the capacity is per shard, as in the
+            reference).
 
 Phase 9 also drives the float attention wrappers with the reference's
 default fold_scale=False at D 128 (the kernels divide by sqrt(d)), with
@@ -466,10 +493,12 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 # ----------------------------------------------------------------- phase 3
 
 def attention_case(name, *, n_slots, gps, sq, d, page_size, max_pages, mode,
-                   lens, chunk_mask=False, sqrt_d=None, device="cuda",
-                   seed=SEED):
+                   lens, chunk_mask=False, sqrt_d=None, floor=None,
+                   device="cuda", seed=SEED):
     """Int8 operands of one paged attention call at a main-path shape;
-    ``sqrt_d`` is the call's ``scale_by_sqrt_d`` (None: folded)."""
+    ``sqrt_d`` is the call's ``scale_by_sqrt_d`` (None: folded), ``floor``
+    its ``cmax_floor`` (the tensor-parallel exact call's), a device int32
+    scalar as `tp_exact_call` passes it."""
     gen = np.random.default_rng(seed)
     n_pages = 1 + n_slots * max_pages
     G = n_slots * gps
@@ -495,7 +524,9 @@ def attention_case(name, *, n_slots, gps, sq, d, page_size, max_pages, mode,
     return dict(name=name, mode=mode, q=t(q), k=t(k), v=t(v),
                 s1=torch.tensor(s1, device=device), mask=mask, kv_len=t(kv),
                 bt=t(bt), page_size=page_size, gps=gps, lens=list(lens),
-                sqrt_d=sqrt_d)
+                sqrt_d=sqrt_d,
+                floor=None if floor is None else torch.tensor(
+                    floor, dtype=torch.int32, device=device))
 
 
 def attention_bound_ms(c) -> tuple[float, str]:
@@ -604,17 +635,19 @@ def check_attention_case(c):
     s1, rsd = sqrt_d_args(c)
     args = (c["q"], c["k"], c["v"], s1, c["mask"])
     kw = dict(kv_len=c["kv_len"], mode=c["mode"], block_table=c["bt"],
-              page_size=c["page_size"], groups_per_slot=c["gps"])
+              page_size=c["page_size"], groups_per_slot=c["gps"],
+              cmax_floor=c["floor"])
     kv = torch.clamp(c["kv_len"], max=c["bt"].shape[1] * c["page_size"])
     plain = lambda: A.acam_attention_codes_plain(
-        *args, kv, c["mode"], c["bt"], c["page_size"], c["gps"], rsd=rsd)
+        *args, kv, c["mode"], c["bt"], c["page_size"], c["gps"], c["floor"],
+        rsd=rsd)
     kernel = lambda: A.acam_attention_codes(
         c["q"], c["k"], c["v"], c["s1"], c["mask"],
         scale_by_sqrt_d=c["sqrt_d"], **kw)
     mask8 = None if c["mask"] is None else c["mask"].to(torch.int8)
     launch = lambda: A._padded_to_4(A._launch_paged, 3)(
         c["q"], c["k"], c["v"], s1, mask8, kv, c["mode"], c["bt"],
-        c["page_size"], c["gps"], None, rsd=rsd)
+        c["page_size"], c["gps"], c["floor"], rsd=rsd)
     bound_ms, bound_by = attention_bound_ms(c)
     return compare_and_time("acam_attention_paged", 2, kernel, launch, plain,
                             bound_ms, bound_by)
@@ -732,8 +765,17 @@ def paged_edge_cases() -> list:
     group and lengths ending mid-page over more pages than one split; pages
     of 8 keys with D 36 (4-byte copies, D padded) and 70 masked rows (two
     row tiles); pages of 96 keys (three runs, key tiles of 32), GQA rows;
-    pages of 1056 keys (33 runs, in two groups) and `order_case`."""
+    pages of 1056 keys (33 runs, in two groups) and `order_case`; and the
+    tensor-parallel exact calls, seeded with a cmax floor: a flat decode of
+    gpt2-large's 10 heads a shard (floor 250) and a GQA decode of
+    command-r's 4 KV heads a shard, 8 rows each (floor 90)."""
     return [
+        attention_case("paged edge floor 250", n_slots=8, gps=10, sq=1,
+                       d=64, page_size=64, max_pages=16, mode="pot",
+                       lens=[0, 1, 63, 65, 1000, 1024, 130, 511], floor=250),
+        attention_case("paged edge gqa floor 90", n_slots=8, gps=4, sq=8,
+                       d=128, page_size=64, max_pages=16, mode="pot_fine",
+                       lens=[700, 1, 0, 64, 1024, 333, 96, 512], floor=90),
         attention_case("paged edge decode mid-page", n_slots=8, gps=20,
                        sq=1, d=64, page_size=64, max_pages=16, mode="pot",
                        lens=[0, 1, 63, 65, 1000, 1024, 130, 511]),
@@ -2760,9 +2802,290 @@ def phase_moe_paged(device_desc: str) -> dict:
           f"{bound_ms:.3f} ms ({bound_by}); kernel equal to plain on a "
           f"2-layer run, {outputs[0]} attention outputs finite, padded heads "
           f"included ({device_desc})", flush=True)
-    del eng, short
+    del short
     torch.cuda.empty_cache()
-    return res
+    return res, eng
+
+
+# ----------------------------------------------------------- phase 22
+
+TP_SHAPES = (  # (name, catalog model, model-axis sizes)
+    ("gpt2-large", "gpt2-large", (2, 4)),
+    ("command-r-35b", "command-r-35b", (2, 4, 8)),
+)
+
+
+def tp_mesh(ms: int):
+    """The ``model=ms`` spec, built with every shard on cuda:0 (the
+    backends' later builds return this mesh)."""
+    from repro_torch.dist import MeshSpec
+    spec = MeshSpec.parse(f"model={ms}")
+    spec.build(["cuda:0"] * ms)
+    return spec
+
+
+def tp_operands(cfg, gen) -> dict:
+    """Float operands at the serving shapes: bucketed prefill (4 rows of
+    256 tokens; 2 for command-r's 64 heads), a contiguous cache of 8 rows of
+    1024 keys with per-row lengths, the paged pool of 8 slots x 16 pages of
+    64 keys, a 64-row chunk with its intra-chunk mask."""
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    B, smax, slots, mp, ps, chunk = 8, 1024, 8, 16, 64, 64
+    bp = 4 if H <= 20 else 2
+    f = lambda *shape: torch.from_numpy(
+        gen.standard_normal(shape).astype(np.float32)).to(DEVICE)
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=DEVICE)
+    n_pages = 1 + slots * mp
+    perm = gen.permutation(np.arange(1, n_pages))
+    lens = gen.integers(1, mp * ps + 1, slots)
+    lens[3] = 0  # an empty slot
+    bt = np.zeros((slots, mp), np.int32)
+    for b, ln in enumerate(lens):
+        bt[b, :-(-ln // ps)] = perm[b * mp: b * mp + -(-ln // ps)]
+    clens = np.maximum(lens, chunk)  # the chunk's rows end at each fill
+    cbt = np.zeros((slots, mp), np.int32)
+    for b, ln in enumerate(clens):
+        cbt[b, :-(-ln // ps)] = perm[b * mp: b * mp + -(-ln // ps)]
+    cmask = (np.arange(mp * ps)[None, None, :]
+             <= (clens - chunk)[:, None, None]
+             + np.arange(chunk)[None, :, None])
+    return dict(qp=f(bp, 256, H, D), kp=f(bp, 256, KV, D),
+                vp=f(bp, 256, KV, D), pad_lens=i32([0, 37, 200, 5][:bp]),
+                q1=f(B, 1, H, D), k=f(B, smax, KV, D), v=f(B, smax, KV, D),
+                kv_len=i32(gen.integers(1, smax + 1, B)),
+                pool_k=f(n_pages, ps, KV, D), pool_v=f(n_pages, ps, KV, D),
+                lens=i32(lens), bt=i32(bt), qc=f(slots, chunk, H, D),
+                clens=i32(clens), cbt=i32(cbt),
+                cmask=torch.from_numpy(cmask).to(DEVICE), page_size=ps)
+
+
+def tp_dataflows(cfg, x) -> list:
+    """(dataflow, slot, TP backend, single-device backend, kwargs) of the
+    phase: every dataflow the TP backends serve, GQA ones where the model
+    shares KV heads."""
+    scale = 1.0 / float(np.sqrt(cfg.resolved_head_dim))
+    pre = dict(scale=scale, q_offset=0, kind="causal", window=None,
+               chunk=None)
+    pool = dict(block_table=x["bt"], page_size=x["page_size"])
+    flows = [
+        ("causal prefill", "attention_prefill", "raceit_fused_tp",
+         "raceit_fused", (x["qp"], x["kp"], x["vp"]), pre),
+        ("padded-bucket prefill", "attention_prefill", "raceit_fused_tp",
+         "raceit_fused", (x["qp"], x["kp"], x["vp"]),
+         dict(pre, pad_lens=x["pad_lens"])),
+        ("contiguous flat decode", "attention_decode", "raceit_fused_tp",
+         "raceit_fused_rows", (x["q1"], x["k"], x["v"]),
+         dict(kv_len=x["kv_len"], scale=scale)),
+        ("paged flat decode", "attention_decode", "raceit_fused_tp",
+         "raceit_fused_paged", (x["q1"], x["pool_k"], x["pool_v"]),
+         dict(kv_len=x["lens"], scale=scale, **pool)),
+        ("paged flat 64-row chunk", "attention_decode", "raceit_fused_tp",
+         "raceit_fused_paged", (x["qc"], x["pool_k"], x["pool_v"]),
+         dict(kv_len=x["clens"], scale=scale, pad_valid=x["cmask"],
+              block_table=x["cbt"], page_size=x["page_size"])),
+    ]
+    if cfg.n_kv_heads < cfg.n_heads:
+        flows += [
+            ("contiguous GQA decode", "attention_decode", "raceit_gqa_tp",
+             "raceit_gqa_rows", (x["q1"], x["k"], x["v"]),
+             dict(kv_len=x["kv_len"], scale=scale)),
+            ("paged GQA decode", "attention_decode", "raceit_gqa_tp",
+             "raceit_gqa_paged", (x["q1"], x["pool_k"], x["pool_v"]),
+             dict(kv_len=x["lens"], scale=scale, **pool)),
+        ]
+    return flows
+
+
+def kernel_calls(counts: dict) -> int:
+    """Attention wrapper calls behind ``counts``: two launches a two-pass
+    call, one a one-tile call."""
+    return ((counts["acam_attention_paged"] + counts["acam_attention"]) // 2
+            + counts["acam_attention_single"])
+
+
+def tp_op_parity(device_desc: str) -> list:
+    """22(a): each TP backend against its single-device backend on the same
+    operands on the card, bit for bit, at model 2 and 4 (gpt2-large's 20
+    heads of 64) and 2, 4 and 8 (command-r's 64 heads over 8 KV heads of
+    128); the TP call must make two wrapper calls (probe and exact) a
+    shard, the single-device call one."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ExecConfig
+    from repro_torch.exec import get_backend, resolve_plan
+    rows = []
+    gen = np.random.default_rng(SEED + 22)
+    for name, arch, sizes in TP_SHAPES:
+        cfg = get_config(arch)
+        x = tp_operands(cfg, gen)
+        single = resolve_plan(cfg, ExecConfig.serving())
+        for ms in sizes:
+            plan = resolve_plan(cfg, ExecConfig.serving(mesh=tp_mesh(ms)))
+            for flow, slot, tp_name, one_name, args, kw in tp_dataflows(cfg,
+                                                                        x):
+                tp_fn = lambda: get_backend(slot, tp_name).impl(plan, *args,
+                                                                **kw)
+                one_fn = lambda: get_backend(slot, one_name).impl(
+                    single, *args, **kw)
+                counts = reset_launches()
+                want = one_fn()
+                one_calls = kernel_calls(dict(counts))
+                counts = reset_launches()
+                got = tp_fn()
+                torch.cuda.synchronize()
+                tp_counts = dict(counts)
+                check(one_calls == 1 and kernel_calls(tp_counts) == 2 * ms,
+                      f"{name} model={ms} {flow}: {one_calls} single-device "
+                      f"and {kernel_calls(tp_counts)} TP wrapper calls")
+                check(got.shape == want.shape and torch.equal(got, want),
+                      f"{name} model={ms} {flow}: TP output differs from "
+                      f"{one_name}")
+                tp_ms, one_ms = cuda_ms(tp_fn, 5), cuda_ms(one_fn, 5)
+                rows.append(dict(model=name, ms=ms, dataflow=flow,
+                                 backend=tp_name, single=one_name,
+                                 launches=tp_counts, tp_ms=tp_ms,
+                                 single_ms=one_ms))
+                print(f"[tp] {name} model={ms} {flow}: {tp_name} bit-equal "
+                      f"to {one_name}; {sum(tp_counts.values())} launches "
+                      f"({kernel_calls(tp_counts)} wrapper calls); call "
+                      f"{tp_ms:.3f} ms against {one_ms:.3f} ms "
+                      f"(CUDA events, host included; {device_desc})",
+                      flush=True)
+    return rows
+
+
+def tp_serving(eng, tp, requests, tag: str) -> dict:
+    """Serve ``requests`` on ``eng`` (no mesh) and its TP twin ``tp``
+    (the same weights), timed: tokens of both and the TP run's numbers."""
+    from repro_torch.kernels import acam_attention as A
+    out = {}
+    for label, e in (("single", eng), ("tp", tp)):
+        serve(e, trace(e.cfg, n_requests=1, lo=64, hi=64, n_new=2))  # warm
+        base = torch.cuda.memory_allocated()  # weights, and what else is held
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        cb, secs, times, peak_pages = serve(e, requests, timed=True)
+        launches = dict(A.launches)
+        for r in requests:
+            done = cb.done[r.rid]
+            check(done.error is None and len(done.result) == r.n_new,
+                  f"{tag} {label} request {r.rid}: "
+                  f"{done.error or len(done.result)}")
+        calls = cb.chunk_calls + cb.decode_steps
+        tokens = sum(len(cb.done[r.rid].result) for r in requests)
+        out[label] = dict(
+            tokens=tokens, seconds=secs, tokens_per_s=tokens / secs,
+            decode_steps=cb.decode_steps, chunk_calls=cb.chunk_calls,
+            decode_ms=1e3 * float(np.mean(times["decode"])),
+            chunk_ms=1e3 * float(np.mean(times["chunk"])),
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            serving_gib=(torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+            launches=launches, calls=calls, summary=cb.summary(),
+            results=tokens_of(cb))
+    return out
+
+
+def phase_tp(device_desc: str, scout) -> dict:
+    """Phase 22: tensor and expert parallelism, every shard on cuda:0."""
+    from repro_torch.configs.base import ExecConfig
+    from repro_torch.models import moe as M
+    t0 = time.perf_counter()
+    ops = tp_op_parity(device_desc)
+    ops_s = time.perf_counter() - t0
+
+    # (b) gpt2-large at 36 layers, model=2, against no mesh on one trace
+    eng = build_engine()
+    tp = with_exec(eng, ExecConfig.serving(mode="raceit", mesh=tp_mesh(2)))
+    check(tp.plan.backend("attention_decode") == "raceit_fused_tp"
+          and tp.plan.backend("attention_prefill") == "raceit_fused_tp",
+          f"gpt2-large model=2 plan: {tp.plan.explain()}")
+    requests = trace(eng.cfg, n_requests=4, lo=64, hi=256, n_new=16)
+    g = tp_serving(eng, tp, requests, "gpt2-large")
+    del eng, tp
+    torch.cuda.empty_cache()
+    check(g["tp"]["results"] == g["single"]["results"],
+          "gpt2-large model=2 tokens differ from no mesh")
+    n_layers = 36
+    per_call = 2 * 2 * 2 * n_layers  # passes x (probe, exact) x shards
+    lp = g["tp"]["launches"]["acam_attention_paged"]
+    check(lp == per_call * g["tp"]["calls"]
+          and g["tp"]["summary"]["mesh"] == "model=2",
+          f"gpt2-large model=2: {lp} paged launches for "
+          f"{g['tp']['calls']} model calls")
+    print(f"[tp] gpt2-large 36L d1280 raceit_q8 paged, model=2 on one card: "
+          f"{g['tp']['tokens']} tokens in {g['tp']['seconds']:.2f} s = "
+          f"{g['tp']['tokens_per_s']:.1f} tok/s (no mesh "
+          f"{g['single']['tokens_per_s']:.1f}); decode step "
+          f"{g['tp']['decode_ms']:.1f} ms (no mesh "
+          f"{g['single']['decode_ms']:.1f}), chunk {g['tp']['chunk_ms']:.1f} "
+          f"ms (no mesh {g['single']['chunk_ms']:.1f}); peak "
+          f"{g['tp']['peak_mem_gib']:.2f} GiB with phase 15's engine held, "
+          f"{g['tp']['serving_gib']:.2f} GiB over the weights (no mesh "
+          f"{g['single']['serving_gib']:.2f}); {per_call} attention launches "
+          f"a model call ({lp} over {g['tp']['calls']}); tokens equal to no "
+          f"mesh ({device_desc})", flush=True)
+
+    # (c) llama4-scout, 4 of 48 layers, model=2: raceit_gqa_tp and EP
+    tp = with_exec(scout, ExecConfig.serving(mode="raceit",
+                                             mesh=tp_mesh(2)))
+    cfg = scout.cfg
+    check(tp.plan.backend("attention_decode") == "raceit_gqa_tp"
+          and cfg.expert_parallel and tp.exec_cfg.mesh.model_size == 2,
+          f"llama4-scout model=2 plan: {tp.plan.explain()}")
+    seen = []
+    inner = M.route
+    M.route = lambda logits, c, plan: (seen.append(logits.clone())
+                                       or inner(logits, c, plan))
+    try:  # layer 0's routing in a first chunk call: one per EP shard
+        serve(tp, trace(cfg, n_requests=2, lo=128, hi=128, n_new=1))
+    finally:
+        M.route = inner
+    routing = []
+    for logits in seen[:2]:
+        card = M.route(logits, cfg, tp.plan)
+        cpu = M.route(logits.cpu(), cfg, tp.plan)
+        for field in ("gate", "expert", "keep", "slot"):
+            a, b = getattr(card, field).cpu(), getattr(cpu, field)
+            check(a.dtype == b.dtype and torch.equal(a, b),
+                  f"EP routing on the card and the CPU differ in {field}")
+        check(card.C == M.capacity(cfg, logits.shape[0]),
+              "EP capacity is not the shard's")
+        routing.append(dict(tokens=int(logits.shape[0]), C=card.C,
+                            dropped=int((~card.keep).sum())))
+    check(not torch.equal(seen[0], seen[1]),
+          "the EP shards routed the same tokens")
+    requests = trace(cfg, n_requests=4, lo=64, hi=256, n_new=8)
+    sc = tp_serving(scout, tp, requests, "llama4-scout")
+    del tp
+    torch.cuda.empty_cache()
+    agree = sum(a == b for rid in sc["single"]["results"]
+                for a, b in zip(sc["single"]["results"][rid],
+                                sc["tp"]["results"][rid]))
+    lp = sc["tp"]["launches"]["acam_attention_paged"]
+    check(lp == 2 * 2 * 2 * cfg.n_layers * sc["tp"]["calls"],
+          f"llama4-scout model=2: {lp} paged launches for "
+          f"{sc['tp']['calls']} model calls")
+    print(f"[tp] llama4-scout {cfg.n_layers} of 48 layers, model=2 "
+          f"(raceit_gqa_tp, EP over 2 shards) on one card: "
+          f"{sc['tp']['tokens_per_s']:.1f} tok/s (no mesh "
+          f"{sc['single']['tokens_per_s']:.1f}); decode step "
+          f"{sc['tp']['decode_ms']:.1f} ms (no mesh "
+          f"{sc['single']['decode_ms']:.1f}), chunk {sc['tp']['chunk_ms']:.1f}"
+          f" ms (no mesh {sc['single']['chunk_ms']:.1f}); peak "
+          f"{sc['tp']['peak_mem_gib']:.2f} GiB, "
+          f"{sc['tp']['serving_gib']:.2f} GiB over the weights (no mesh "
+          f"{sc['single']['serving_gib']:.2f}); {agree} of "
+          f"{sc['tp']['tokens']} tokens equal to no mesh (counted: EP "
+          f"capacity is per shard); layer 0's EP routing card == CPU on "
+          f"{len(routing)} shards ({routing}) ({device_desc})", flush=True)
+    strip = lambda d: {k: v for k, v in d.items()
+                       if k not in ("results", "summary")}
+    return dict(ops=ops, ops_s=ops_s,
+                gpt2={k: strip(v) for k, v in g.items()},
+                scout={k: strip(v) for k, v in sc.items()},
+                scout_agree=agree, routing=routing,
+                launches={"acam_attention_paged":
+                          g["tp"]["launches"]["acam_attention_paged"]
+                          + sc["tp"]["launches"]["acam_attention_paged"]})
 
 
 # ----------------------------------------------------------- phase 16
@@ -3846,8 +4169,12 @@ def main() -> None:
     lap("13 gemma3")
     moe_pool_res = phase_moe_pool(desc)
     lap("14 moe pool")
-    moe_paged_res = phase_moe_paged(desc)
+    moe_paged_res, scout = phase_moe_paged(desc)
     lap("15 moe paged")
+    tp_res = phase_tp(desc, scout)
+    del scout
+    torch.cuda.empty_cache()
+    lap("22 tp")
     ssm_res = phase_ssm_pool(desc)
     lap("16 ssm pool")
     hybrid_res = phase_hybrid_pool(desc)
@@ -3860,7 +4187,7 @@ def main() -> None:
     lap("20 mrope paged")
     noise_res = phase_noise(desc)
     lap("21 noise")
-    print(f"[time] phases 3 to 21: {time.perf_counter() - t_start:.1f} s; "
+    print(f"[time] phases 3 to 22: {time.perf_counter() - t_start:.1f} s; "
           + ", ".join(f"{k} {v:.1f} s" for k, v in laps.items()), flush=True)
 
     # each kernel's headline: its main-path decode shape in mode pot
@@ -3875,7 +4202,8 @@ def main() -> None:
                     main_res["launches"]
                     + gqa_res["launches"]["acam_attention_paged"]
                     + moe_paged_res["launches"]["acam_attention_paged"]
-                    + mrope_res["launches"]["acam_attention_paged"]),
+                    + mrope_res["launches"]["acam_attention_paged"]
+                    + tp_res["launches"]["acam_attention_paged"]),
                 "acam_attention": (bucket_res["launches"]["acam_attention"]
                                    + solo_res["launches"]["acam_attention"]
                                    + pool_res["launches"]["acam_attention"]
@@ -3941,6 +4269,7 @@ def main() -> None:
                                     "whisper": whisper_res,
                                     "mrope_paged": mrope_res,
                                     "noise": noise_res,
+                                    "tp": tp_res,
                                     "laps": laps,
                                     "smem_d320": smem_rows}),
           flush=True)

@@ -14,7 +14,8 @@ attention_decode fused family (``raceit_fused``, ``raceit_gqa_native``, the
 per-row ``*_rows`` and the paged ``*_paged``, which serve contiguous
 callers too), ``raceit_staged`` and ``digital``, and lm_head ``digital``/
 ``raceit_q8``; the ``raceit_noisy_*`` family registers itself from
-`repro_torch.exec.noisy`. Names, notes and capability predicates are the
+`repro_torch.exec.noisy`, the tensor-parallel ``raceit_*_tp`` family from
+`repro_torch.exec.sharded`. Names, notes and capability predicates are the
 reference's, so both packages resolve the same plan.
 """
 from __future__ import annotations
@@ -429,7 +430,8 @@ def _lm_head_raceit_q8(plan, x, w):
     return _matmul_raceit_int(plan, x, w, None).float()
 
 
-# the raceit_noisy_* family registers itself against the same slots from
-# its own module, reusing the helpers above; importing it here (after every
-# helper is defined) keeps `_ensure_backends_loaded` the single load point
-from . import noisy  # noqa: E402,F401
+# the raceit_noisy_* and tensor-parallel raceit_*_tp families register
+# themselves against the same slots from their own modules, reusing the
+# helpers above; importing them here (after every helper is defined) keeps
+# `_ensure_backends_loaded` the single load point
+from . import noisy, sharded  # noqa: E402,F401

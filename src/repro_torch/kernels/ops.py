@@ -41,7 +41,9 @@ __all__ = ["acam_activation", "raceit_linear", "acam_lut", "acam_lut_2d",
            "page_valid_lengths", "masked_page_quantize",
            "page_quantize_tensor", "expand_row_lens",
            "raceit_attention_decode_paged",
-           "raceit_attention_decode_gqa_paged"]
+           "raceit_attention_decode_gqa_paged", "tp_quantize_tensor",
+           "tp_masked_prefix_quantize", "tp_masked_page_quantize",
+           "tp_exact_call"]
 
 
 def acam_activation(x: torch.Tensor, name: str = "gelu") -> torch.Tensor:
@@ -105,26 +107,45 @@ def prob_descale(cmax: torch.Tensor, vq: QuantizedTensor) -> torch.Tensor:
     return scale_product(pq, vq)
 
 
-def _masked_quantize(x: torch.Tensor, valid: torch.Tensor) -> QuantizedTensor:
-    """One int8 scale over the ``valid`` entries of ``x`` (padded with
-    zeros, so the max over their union); other entries get code 0."""
-    amax = torch.where(valid, x.abs(), torch.zeros((), device=x.device)).amax()
+def _masked_amax(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """max |x| over the ``valid`` entries (padded with zeros, so the max
+    over their union)."""
+    return torch.where(valid, x.abs(), torch.zeros((), device=x.device)).amax()
+
+
+def _quantize_at(x: torch.Tensor, amax: torch.Tensor,
+                 valid: Optional[torch.Tensor] = None) -> QuantizedTensor:
+    """int8 codes of ``x`` at the scale of ``amax`` (divide, round half to
+    even); entries outside ``valid`` get code 0."""
     scale = recip_scale(amax, 127).float()
     codes = torch.clamp(torch.round(x / scale), -128, 127).to(torch.int8)
-    return QuantizedTensor(torch.where(valid, codes, torch.zeros_like(codes)),
-                           scale, 8, torch.clamp_min(amax, float(
-                               np.float32(1e-12))))
+    if valid is not None:
+        codes = torch.where(valid, codes, torch.zeros_like(codes))
+    return QuantizedTensor(codes, scale, 8, torch.clamp_min(
+        amax, float(np.float32(1e-12))).float())
+
+
+def _masked_quantize(x: torch.Tensor, valid: torch.Tensor) -> QuantizedTensor:
+    """One int8 scale over the ``valid`` entries of ``x``; other entries
+    get code 0."""
+    return _quantize_at(x, _masked_amax(x, valid), valid)
 
 
 def prefix_quantize_tensor(x: torch.Tensor, kv_len, axis: int = 2
                            ) -> QuantizedTensor:
     """`masked_prefix_quantize` as a `QuantizedTensor` (with its amax)."""
+    return _masked_quantize(x, _prefix_valid(x, kv_len, axis))
+
+
+def _prefix_valid(x: torch.Tensor, kv_len, axis: int) -> torch.Tensor:
+    """Entries of ``x`` inside the valid prefix along ``axis`` (``kv_len`` a
+    scalar or one length per leading batch row)."""
     shape = tuple(x.shape[axis] if d == axis else 1 for d in range(x.ndim))
     idx = torch.arange(x.shape[axis], device=x.device).reshape(shape)
     kvl = torch.as_tensor(kv_len, device=x.device).to(torch.int32)
     if kvl.ndim == 1:  # per-row prefixes along the leading batch dim
         kvl = kvl.reshape((-1,) + (1,) * (x.ndim - 1))
-    return _masked_quantize(x, idx < kvl)
+    return idx < kvl
 
 
 def masked_prefix_quantize(x: torch.Tensor, kv_len, axis: int = 2):
@@ -160,10 +181,15 @@ def page_valid_lengths(block_table: torch.Tensor, kv_len: torch.Tensor,
 def page_quantize_tensor(x: torch.Tensor, page_valid: torch.Tensor
                          ) -> QuantizedTensor:
     """`masked_page_quantize` as a `QuantizedTensor` (with its amax)."""
+    return _masked_quantize(x, _page_valid(x, page_valid))
+
+
+def _page_valid(x: torch.Tensor, page_valid: torch.Tensor) -> torch.Tensor:
+    """Entries of a pool (n_pages, page_size, ...) inside each page's live
+    rows."""
     shape = (1, -1) + (1,) * (x.ndim - 2)
     idx = torch.arange(x.shape[1], device=x.device).reshape(shape)
-    return _masked_quantize(
-        x, idx < page_valid.reshape((-1,) + (1,) * (x.ndim - 1)))
+    return idx < page_valid.to(x.device).reshape((-1,) + (1,) * (x.ndim - 1))
 
 
 def masked_page_quantize(x: torch.Tensor, page_valid: torch.Tensor):
@@ -329,3 +355,56 @@ def raceit_attention_decode_gqa_paged(
         block_table=block_table.to(torch.int32).contiguous(), page_size=ps,
         groups_per_slot=KV, scale_by_sqrt_d=_sqrt_d(D, fold_scale))
     return (out32.float() * prob_descale(cmax, vq)).reshape(B, H, Sq, D)
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel twins of the quantizers, over a list of shards (the
+# `repro_torch.exec.sharded` backends' stages)
+# ---------------------------------------------------------------------------
+# Each is its single-device twin's f32 op sequence with one change: the
+# shards' local max |x| are reduced to one global max (the reference's
+# `jax.lax.pmax`) before the shared scale formula. A float32 max does not
+# depend on the order, so the scale and every code equal the single-device
+# quantizer's on the concatenated tensor, bit for bit.
+
+def _global_max(values: list) -> torch.Tensor:
+    """The max over the shards' values, on the first shard's device."""
+    dev = values[0].device
+    return torch.stack([v.to(dev) for v in values]).amax()
+
+
+def tp_quantize_tensor(xs: list) -> list:
+    """`quantize_tensor(x, bits=8)` of each shard, the scale global."""
+    g = _global_max([x.abs().amax() for x in xs])
+    return [_quantize_at(x, g.to(x.device)) for x in xs]
+
+
+def tp_masked_prefix_quantize(xs: list, kv_len, axis: int = 2) -> list:
+    """`prefix_quantize_tensor` of each shard, the amax global."""
+    valid = [_prefix_valid(x, kv_len, axis) for x in xs]
+    g = _global_max([_masked_amax(x, m) for x, m in zip(xs, valid)])
+    return [_quantize_at(x, g.to(x.device), m) for x, m in zip(xs, valid)]
+
+
+def tp_masked_page_quantize(xs: list, page_valid: torch.Tensor) -> list:
+    """`page_quantize_tensor` of each shard of a pool, the amax global."""
+    valid = [_page_valid(x, page_valid) for x in xs]
+    g = _global_max([_masked_amax(x, m) for x, m in zip(xs, valid)])
+    return [_quantize_at(x, g.to(x.device), m) for x, m in zip(xs, valid)]
+
+
+def tp_exact_call(calls: list) -> list:
+    """The probe -> global max -> exact protocol of a tensor-parallel call.
+
+    ``calls[i](cmax_floor)`` runs one of the ``acam_attention*_codes``
+    entries on shard i's groups and returns its (out32, cmax). The probe
+    calls (floor 0) give each shard's local max PROB code; their max (an
+    integer max, order-free) is the global one; the exact calls re-run
+    every shard with that floor, so each re-quantizes PROB with the table
+    the single-device call uses on the gathered operands. Returns each
+    shard's (out32, cmax); every cmax is the global one.
+    """
+    probes = [call(0) for call in calls]
+    floor = _global_max([cmax for _, cmax in probes])
+    return [call(floor.to(cmax.device))
+            for call, (_, cmax) in zip(calls, probes)]

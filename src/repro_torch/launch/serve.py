@@ -11,7 +11,12 @@ contiguous slot cache when ``--prefill-len`` pins the admission width (or
 the model has no paged cache form); ``--staged-attention`` serves the
 stage-by-stage oracle attention instead of the fused kernels;
 ``--noise PRESET|SIGMA`` (and ``--noise-seed``) serves on device-varied
-arrays through the ``raceit_noisy_*`` backends. An
+arrays through the ``raceit_noisy_*`` backends; ``--mesh`` (``4``,
+``model=4``, ``data=2,model=4``) shards attention heads and the KV cache
+over the ``raceit_*_tp`` backends and the MoE FFNs over the mesh, one
+process driving every shard (``--device cpu`` puts every shard on the
+CPU; on the card a mesh takes ``cuda:0 .. n-1`` and stops when the
+process has fewer cards). An
 encoder-decoder (whisper-tiny) serves bucketed, its decoder attending to
 zero cross keys and values as the reference's launcher leaves them (no
 frame embeddings are passed); the slot pools refuse it. Weights are
@@ -102,6 +107,13 @@ def main(argv=None):
     ap.add_argument("--noise-seed", type=int, default=0,
                     help="device-variation seed (--noise); one seed = one "
                          "simulated chip, reproducibly")
+    ap.add_argument("--mesh", default=None, metavar="AXES",
+                    help="serve on a device mesh: '4' / 'model=4' / "
+                         "'data=2,model=4' (repro_torch.dist.MeshSpec "
+                         "syntax). A 'model' axis shards attention heads "
+                         "and the KV cache over the raceit_*_tp backends "
+                         "and the MoE FFNs over the mesh; on --device cpu "
+                         "every shard runs on the CPU")
     ap.add_argument("--set", nargs="*", default=[])
     args = ap.parse_args(argv)
 
@@ -118,6 +130,13 @@ def main(argv=None):
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 means f32
     torch.backends.cudnn.allow_tf32 = False
+    mesh = None
+    if args.mesh is not None:
+        from repro_torch.dist import MeshSpec
+        mesh = MeshSpec.parse(args.mesh)
+        mesh.build(kind=device.type)  # before the weights: fail fast
+        print(f"[serve] device mesh: {mesh.describe()} "
+              f"({mesh.n_devices} devices)")
     overrides = {}
     for kv in args.set:
         k, v = kv.split("=", 1)
@@ -142,7 +161,7 @@ def main(argv=None):
     exec_cfg = ExecConfig.serving(
         mode="raceit" if args.mode.startswith("raceit") else "digital",
         fused_attention=not args.staged_attention,
-        op_overrides=parse_exec_plan(args.exec_plan), noise=noise)
+        op_overrides=parse_exec_plan(args.exec_plan), noise=noise, mesh=mesh)
     if args.mode == "raceit_q8":
         params = quantize_model_params(params)
         print("[serve] weights quantized to resident int8 crossbar codes")

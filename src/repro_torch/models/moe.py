@@ -1,9 +1,7 @@
 """Mixture-of-Experts FFN: token-choice top-k routing with a static capacity.
 
-The port of `repro.models.moe` without a mesh (the reference's per-shard
-body at tensor-parallel size 1; its expert-parallel all_to_all and the
-d_ff-sharded psum wait for the port's tensor parallelism). Step by step as
-the reference:
+The port of `repro.models.moe`. The per-shard body, step by step as the
+reference's:
 
 * the router: float32 ``x @ router`` through the plan's softmax slot (the
   Compute-ACAM Fig.-8 dataflow in raceit mode, whose probabilities sit on a
@@ -23,6 +21,26 @@ the reference:
 The expert weights stay float in every mode (`quantize_model_params` skips
 the ``moe`` subtree, as the reference does); the products are plain matrix
 products, which the reference computes outside any Pallas kernel too.
+
+Under a mesh (``ExecConfig.mesh`` naming more than one device), one
+process runs the
+reference's `shard_map` body on every shard, its collectives written out:
+
+* **TP-in-expert** (the default): ``w1``/``w3`` sharded on d_ff and ``w2``
+  on its rows over the ``model`` axis; every shard routes all of its
+  tokens, computes partial expert outputs and combines them, and the
+  partials are summed in shard order (the reference's ``psum``);
+* **EP** (``expert_parallel``, E % model == 0): the experts sharded over
+  ``model``, and the sequence too when it divides, so each shard routes
+  its own tokens at its own capacity C = ceil(k * T_local * cf / E); the
+  two ``all_to_all``s become reshuffles of the (E, C, D) blocks: expert
+  owner j takes every shard's block of its experts (concatenated on C),
+  and each shard takes its C rows back from every owner;
+* the ``data`` (and ``pod``) axes split the batch when it divides, each
+  part routed on its own, as the reference's ``batch_spec``.
+
+Inside a shard the raceit activation and router softmax see the shard's
+tensors only, as the reference's body does.
 """
 from __future__ import annotations
 
@@ -104,38 +122,125 @@ def _bmm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.bmm(a, w.to(a.dtype))
 
 
+def _dispatch(p: Params, xf: torch.Tensor, cfg: ModelConfig,
+              plan: ExecPlan):
+    """Route the (T, D) tokens and gather them into the (E, C, D) expert
+    blocks (the drop bin left out)."""
+    T, D = xf.shape
+    E, K = cfg.n_experts, cfg.top_k
+    logits = xf.float() @ p["router"]
+    r = route(logits, cfg, plan)
+    token_id = torch.arange(T, device=xf.device).repeat_interleave(K)
+    disp = torch.zeros((E * r.C + 1, D), device=xf.device, dtype=xf.dtype)
+    disp[r.slot] = xf[token_id]  # kept slots are distinct; the rest: drop bin
+    return r, disp[:-1].reshape(E, r.C, D)
+
+
+def _experts(disp: torch.Tensor, w1, w2, w3, cfg: ModelConfig,
+             plan: ExecPlan) -> torch.Tensor:
+    """The three batched expert products, the activation and the GLU."""
+    h = _bmm(disp, w1)
+    h = plan.activation(h, cfg.activation)
+    if w3 is not None:
+        h = h * _bmm(disp, w3)
+    return _bmm(h, w2)
+
+
+def _combine(y_e: torch.Tensor, r: Routing, T: int) -> torch.Tensor:
+    """Gather each (token, choice) slot's output, weight it, and sum the
+    choices: (E, C, D) -> (T, D)."""
+    E, C, D = y_e.shape
+    y_pad = torch.cat([y_e.reshape(E * C, D),
+                       torch.zeros((1, D), device=y_e.device,
+                                   dtype=y_e.dtype)])
+    w = (r.gate.reshape(-1) * r.keep)[:, None].to(y_e.dtype)
+    return (y_pad[r.slot] * w).reshape(T, -1, D).sum(dim=1)
+
+
 def _moe_local(p: Params, x: torch.Tensor, cfg: ModelConfig,
                plan: ExecPlan) -> torch.Tensor:
     """The MoE body on one device. x: (B, S, D)."""
     B, S, D = x.shape
-    E, K = cfg.n_experts, cfg.top_k
-    T = B * S
-    xf = x.reshape(T, D)
+    r, disp = _dispatch(p, x.reshape(B * S, D), cfg, plan)
+    y_e = _experts(disp, p["w1"], p["w2"], p.get("w3"), cfg, plan)
+    return _combine(y_e, r, B * S).reshape(B, S, D)
 
-    logits = xf.float() @ p["router"]
-    r = route(logits, cfg, plan)
-    C = r.C
 
-    token_id = torch.arange(T, device=x.device).repeat_interleave(K)
-    disp = torch.zeros((E * C + 1, D), device=x.device, dtype=x.dtype)
-    disp[r.slot] = xf[token_id]  # kept slots are distinct; the rest: drop bin
-    disp = disp[:-1].reshape(E, C, D)
-
-    h = _bmm(disp, p["w1"])
-    h = plan.activation(h, cfg.activation)
-    if "w3" in p:
-        h = h * _bmm(disp, p["w3"])
-    y_e = _bmm(h, p["w2"])
-
-    # combine: gather each (token, choice) slot's output, weight, and sum
-    y_pad = torch.cat([y_e.reshape(E * C, D),
-                       torch.zeros((1, D), device=x.device, dtype=y_e.dtype)])
-    w = (r.gate.reshape(-1) * r.keep)[:, None].to(y_e.dtype)
-    y = (y_pad[r.slot] * w).reshape(T, K, D).sum(dim=1)
+def _moe_tp(p: Params, x: torch.Tensor, cfg: ModelConfig, plan: ExecPlan,
+            devices: list) -> torch.Tensor:
+    """TP-in-expert: shard m holds d_ff columns ``[m*F/ms, (m+1)*F/ms)``
+    of w1/w3 and those rows of w2; the partials sum in shard order."""
+    B, S, D = x.shape
+    ms = len(devices)
+    F = p["w1"].shape[-1] // ms
+    cols = lambda w, m: None if w is None else w[..., m * F:(m + 1) * F]
+    y = None
+    for m, dev in enumerate(devices):
+        w = {k: (None if v is None else v.to(dev))
+             for k, v in (("router", p["router"]), ("w1", cols(p["w1"], m)),
+                          ("w2", p["w2"][:, m * F:(m + 1) * F]),
+                          ("w3", cols(p.get("w3"), m)))}
+        r, disp = _dispatch(w, x.to(dev).reshape(B * S, D), cfg, plan)
+        y_m = _combine(_experts(disp, w["w1"], w["w2"], w["w3"], cfg, plan),
+                       r, B * S).to(x.device)
+        y = y_m if y is None else y + y_m
     return y.reshape(B, S, D)
+
+
+def _moe_ep(p: Params, x: torch.Tensor, cfg: ModelConfig, plan: ExecPlan,
+            devices: list) -> torch.Tensor:
+    """EP: shard j owns experts ``[j*E/ms, (j+1)*E/ms)``; the sequence is
+    sharded when it divides (otherwise every shard routes every token and
+    the owners compute the copies, as the reference's decode does)."""
+    B, S, D = x.shape
+    ms = len(devices)
+    El = cfg.n_experts // ms
+    seq = S % ms == 0
+    xs = ([c.to(d) for c, d in zip(x.chunk(ms, 1), devices)] if seq
+          else [x.to(d) for d in devices])
+    routed = [_dispatch({"router": p["router"].to(d)},
+                        xm.reshape(-1, D), cfg, plan)
+              for xm, d in zip(xs, devices)]
+    C = routed[0][0].C
+    # the dispatch all_to_all: owner j gets every shard's block of its
+    # experts, concatenated on the capacity axis in shard order
+    ys = []
+    for j, dev in enumerate(devices):
+        blocks = torch.cat([disp[j * El:(j + 1) * El].to(dev)
+                            for _, disp in routed], dim=1)
+        ex = lambda w: None if w is None else w[j * El:(j + 1) * El].to(dev)
+        ys.append(_experts(blocks, ex(p["w1"]), ex(p["w2"]), ex(p.get("w3")),
+                           cfg, plan))
+    # the return all_to_all: shard m takes its C rows from every owner
+    outs = []
+    for m, ((r, _), xm) in enumerate(zip(routed, xs)):
+        y_e = torch.cat([y[:, m * C:(m + 1) * C].to(xm.device) for y in ys])
+        outs.append(_combine(y_e, r, xm.shape[0] * xm.shape[1]).reshape(
+            xm.shape).to(x.device))
+    return torch.cat(outs, dim=1) if seq else outs[0]
 
 
 def moe(p: Params, x: torch.Tensor, cfg: ModelConfig,
         plan: "ExecPlan | ExecConfig") -> torch.Tensor:
-    """The MoE FFN of one layer: (B, S, D) -> (B, S, D)."""
-    return _moe_local(p, x, cfg, as_plan(cfg, plan))
+    """The MoE FFN of one layer: (B, S, D) -> (B, S, D); over the shards of
+    the plan's ``ExecConfig.mesh`` when it names more than one device (the
+    mesh built for ``x``'s device kind, as the attention backends build
+    it)."""
+    plan = as_plan(cfg, plan)
+    spec = plan.exec_cfg.mesh
+    if spec is None or spec.n_devices <= 1:
+        return _moe_local(p, x, cfg, plan)
+    ctx = spec.context(kind=x.device.type)
+    devices = ctx.model_devices()
+    if len(devices) == 1:
+        body = lambda xb: _moe_local(p, xb, cfg, plan)
+    elif cfg.expert_parallel:
+        body = lambda xb: _moe_ep(p, xb, cfg, plan, devices)
+    else:
+        body = lambda xb: _moe_tp(p, xb, cfg, plan, devices)
+    dp = ctx.dp_size
+    if dp > 1 and x.shape[0] % dp == 0:
+        # the data axes split the batch; each part is one replica set's
+        # (run here on the first replica set's devices)
+        return torch.cat([body(xb) for xb in x.chunk(dp, 0)], dim=0)
+    return body(x)

@@ -104,6 +104,14 @@ class ContinuousBatcher:
                  tenant_cap: Optional[int] = None,
                  prefix_cache: Optional[bool] = None):
         self.engine = engine
+        # mesh-sharded serving: the batcher never touches the mesh itself
+        # (the TP attention backends shard the pool inside the model call;
+        # block tables and slot lengths stay replicated host state), it
+        # only reports the shape and the resolved decode backend in
+        # summary(), so a degraded mesh (non-dividing KV heads) shows there
+        _mesh = getattr(engine.exec_cfg, "mesh", None)
+        self.mesh_spec = (_mesh if _mesh is not None
+                          and getattr(_mesh, "n_devices", 1) > 1 else None)
         self.n = n_slots
         self.prefill_len = prefill_len
         self.pad_id = pad_id
@@ -543,6 +551,9 @@ class ContinuousBatcher:
             "queue_depths": self.queue.depths(),
             "fairness_jain": self.metrics.fairness(self.queue.weights),
         }
+        if self.mesh_spec is not None:
+            s["mesh"] = self.mesh_spec.describe()
+            s["decode_backend"] = self.engine.plan.backend("attention_decode")
         if self.paged:
             a = self.allocator
             s.update(chunk_calls=self.chunk_calls,

@@ -8,6 +8,15 @@ prefill. The paged continuous batcher drives ``_decode`` and
 ``_prefill_chunk`` on a block-paged pool. The reference jits these entries
 with the cache donated; the port runs them eagerly and updates the caches
 in place.
+
+With ``ExecConfig.mesh`` naming more than one device, the engine builds
+the mesh once for its device kind, so a CUDA mesh larger than the
+process's cards raises here (a mesh built earlier onto an explicit device
+list is reused). Attention shards through the plan's ``raceit_*_tp``
+backends and the MoE FFNs through `models.moe`, each reading the same
+``ExecConfig.mesh``. The weights stay on the engine's device: placing
+them in stripes over distinct cards (the reference's FSDP at load) is not
+ported.
 """
 from __future__ import annotations
 
@@ -36,6 +45,9 @@ class GenerationEngine:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        spec = self.exec_cfg.mesh
+        if spec is not None and spec.n_devices > 1:
+            spec.build(kind=self.device.type)
         self.model = Model(self.cfg, self.exec_cfg, device=self.device)
         self.plan = self.model.plan  # resolved operator dispatch table
         if self.params is not None:

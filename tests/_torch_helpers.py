@@ -24,13 +24,22 @@ def port_noise_config(nz):
     return NoiseConfig(**dataclasses.asdict(nz))
 
 
+def port_mesh_spec(mesh):
+    """The port's MeshSpec with the reference's axes."""
+    if mesh is None:
+        return None
+    from repro_torch.dist import MeshSpec
+    return MeshSpec(axes=tuple(mesh.axes))
+
+
 def port_exec_config(ec):
     """The port's ExecConfig with the reference's declarative fields."""
     return port_base.ExecConfig(
         mode=ec.mode, softmax_mode=ec.softmax_mode,
         matmul_fidelity=ec.matmul_fidelity, act_bits=ec.act_bits,
         weight_bits=ec.weight_bits, fused_attention=ec.fused_attention,
-        op_overrides=ec.op_overrides, noise=port_noise_config(ec.noise))
+        op_overrides=ec.op_overrides, noise=port_noise_config(ec.noise),
+        mesh=port_mesh_spec(ec.mesh))
 
 
 def to_numpy(tree):
