@@ -264,6 +264,34 @@ Phases, in order; any failure raises and the script exits non-zero:
             count, tokens/s, step ms, and the tokens equal to no mesh
             counted, not held (with EP the capacity is per shard, as in the
             reference).
+23. train  training (no kernel but in (d)), TF32 off. (a) gpt2-large's
+            width cut to 2 layers, weights from a seed made on the CPU and
+            copied to the card, batch 2 x 64: loss and every gradient leaf
+            of `trainer.value_and_grad` on the card against the CPU's
+            (the CPU tests' tolerances: loss rtol 1e-6, each leaf
+            max|diff| <= 1e-4 max|g| + 1e-7). (b) gpt2-large at its
+            published width, nothing cut, through `launch.train.train` at
+            the launcher's defaults (8 x 256 tokens a step, float32, AdamW
+            with remat "dots"), 6 steps with its checkpoint under build/;
+            the checkpoint restored with `CheckpointManager.restore` equal
+            bit for bit to the state the run returned; a second run to
+            step 8 resumes from step 6; every loss finite, step 6's below
+            step 1's. Step ms (median after the first), tokens/s, peak
+            memory, checkpoint write and restore seconds and bytes, one
+            step split into forward, backward and optimizer (CUDA
+            synchronised host clock), forward + backward and its peak
+            memory under each remat policy (none, full, dots), and one
+            step under torch.profiler (idle share, top device kernels). The directory is deleted.
+            (c) tests/test_substrate.py's tiny olmo-1b: 10 steps against 5,
+            then a resume to 10; final params within rtol 1e-5, atol 1e-6
+            (the embedding's backward accumulates with atomics on the
+            card). (d) tests/test_system.py's tiny gpt2-large (2 layers, d
+            128) trains 120 steps, its last loss under 0.7 of its first;
+            then `Model.forward` under ExecConfig.serving(mode="raceit") on
+            resident int8 launches the contiguous kernel (2 a layer), its
+            argmax agrees with the digital forward on more than 0.7 of the
+            positions, and it equals the forward with the kernel swapped
+            for its plain version bit for bit.
 
 Phase 9 also drives the float attention wrappers with the reference's
 default fold_scale=False at D 128 (the kernels divide by sqrt(d)), with
@@ -272,6 +300,7 @@ card: `mult8_codes` on all 65536 pairs of int8 codes by the 4-bit
 two-variable tables and by their match lines (``hw=True``), and
 `dd_matmul_codes(fidelity="acam")` on a (4, 16, 64) x (64, 16) case, each
 equal to the integer product.
+
 
 Phase 3 also holds the LUT kernel (int8 and int32 codes), the crossbar MVM
 kernel (exact, and quantizing at adc_bits 8 and 6; with edge shapes off
@@ -3985,6 +4014,347 @@ def phase_noise(device_desc: str) -> dict:
     return res
 
 
+# ----------------------------------------------------------- phase 23
+
+# the CPU tests' tolerances (tests/_torch_train_cases.py)
+TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL, TRAIN_LOSS_RTOL = 1e-4, 1e-7, 1e-6
+TRAIN_CKPT = ROOT / "build" / "train_smoke"
+
+
+def tiny_train_config(name: str, **kw):
+    """`tests/conftest.py` `tiny_config` for the dense catalog models (no
+    experts, SSM or encoder), then ``kw``."""
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    tiny = dict(d_model=64, d_ff=128, vocab_size=256, param_dtype="float32",
+                compute_dtype="float32", max_seq_len=128, window=8,
+                n_layers=min(cfg.n_layers, 2 * cfg.block_period + (
+                    1 if cfg.n_layers % cfg.block_period else 0)),
+                n_heads=4, head_dim=16,
+                n_kv_heads=(min(cfg.n_kv_heads, 2)
+                            if cfg.n_kv_heads < cfg.n_heads else 4))
+    return cfg.replace(**{**tiny, **kw})
+
+
+def grad_gap(got, want) -> tuple[float, tuple]:
+    """The worst leaf's max|got - want| over its tolerance
+    (TRAIN_GRAD_RTOL max|want| + TRAIN_GRAD_ATOL), and its path."""
+    from repro_torch import tree
+    worst, where = 0.0, None
+    for (path, a), (_, b) in zip(tree.leaves_with_paths(got),
+                                 tree.leaves_with_paths(want)):
+        a, b = a.double().cpu(), b.double().cpu()
+        tol = TRAIN_GRAD_RTOL * float(b.abs().max()) + TRAIN_GRAD_ATOL
+        r = float((a - b).abs().max()) / tol
+        if r > worst:
+            worst, where = r, path
+    return worst, where
+
+
+def train_card_vs_cpu(device_desc: str) -> dict:
+    """(a) gpt2-large's width at 2 layers: loss and gradients, card
+    against CPU, on the same weights and batch."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.model import params_to
+    from repro_torch.train import trainer
+    cfg = get_config("gpt2-large").replace(n_layers=2, param_dtype="float32",
+                                           compute_dtype="float32")
+    cpu = Model(cfg, device="cpu")
+    p_cpu = cpu.init(torch.Generator().manual_seed(SEED + 23))
+    tokens = np.random.default_rng(SEED + 23).integers(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32)
+    t0 = time.perf_counter()
+    l_cpu, g_cpu = trainer.value_and_grad(cpu, p_cpu, {"tokens": tokens})
+    cpu_s = time.perf_counter() - t0
+    card = Model(cfg, device=DEVICE)
+    l_card, g_card = trainer.value_and_grad(card, params_to(p_cpu, DEVICE),
+                                            {"tokens": tokens})
+    loss_rel = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+    worst, where = grad_gap(g_card, g_cpu)
+    n = sum(x.numel() for x in tree.leaves(p_cpu))
+    print(f"[train] (a) gpt2-large width, 2 layers ({n} params), 2 x 64 "
+          f"tokens: loss card {float(l_card):.7f} CPU {float(l_cpu):.7f} "
+          f"(rel {loss_rel:.2e}, tolerance {TRAIN_LOSS_RTOL}); worst "
+          f"gradient leaf {'/'.join(map(str, where or ()))} at "
+          f"{worst:.3f} of its tolerance (CPU pass {cpu_s:.1f} s; "
+          f"{device_desc})", flush=True)
+    check(loss_rel <= TRAIN_LOSS_RTOL, f"train (a): loss card {float(l_card)}"
+          f" against CPU {float(l_cpu)}")
+    check(worst <= 1.0, f"train (a): gradient leaf {where} at {worst:.3f} "
+          f"of its tolerance")
+    return dict(params=n, loss_card=float(l_card), loss_cpu=float(l_cpu),
+                loss_rel=loss_rel, worst_grad=worst,
+                worst_leaf="/".join(map(str, where or ())))
+
+
+def split_step_ms(model, params, opt_state, batch, opt_cfg) -> dict:
+    """One train step by parts, each ending in a synchronise: forward (the
+    loss), backward (`torch.autograd.grad`), optimizer (AdamW and the
+    parameter update)."""
+    from repro_torch import tree
+    from repro_torch.train import optim
+    flat = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = model.loss_fn(tree.unflatten(params, flat), batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    grads = torch.autograd.grad(loss, flat)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    upd, _, _ = optim.adamw_update(tree.unflatten(params, list(grads)),
+                                   opt_state, params, opt_cfg)
+    optim.apply_updates(params, upd)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return dict(forward_ms=1e3 * (t1 - t0), backward_ms=1e3 * (t2 - t1),
+                optimizer_ms=1e3 * (t3 - t2))
+
+
+def train_full_width(device_desc: str) -> dict:
+    """(b) gpt2-large at its published width through the launcher's
+    function: 6 steps, the checkpoint restored bit for bit, a resume to 8."""
+    import shutil
+    from repro_torch import tree
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train as launch
+    from repro_torch.models import Model
+    from repro_torch.train import loop, optim, trainer
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    TRAIN_CKPT.parent.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(TRAIN_CKPT.parent).free
+    saves = []
+
+    class TimedManager(CheckpointManager):  # times each blocking save
+        def save(self, step, tree_, extra=None, block=True):
+            t0 = time.perf_counter()
+            super().save(step, tree_, extra, block)
+            saves.append((step, time.perf_counter() - t0, block))
+
+    real_manager = loop.CheckpointManager
+    loop.CheckpointManager = TimedManager
+    logs = []
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, opt_state, out = launch.train(
+            "gpt2-large", steps=6, ckpt_dir=str(TRAIN_CKPT), device=DEVICE,
+            log=logs.append)
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        h = out["history"]
+        losses = [r["loss"] for r in h]
+        check(out["final_step"] == 6 and len(h) == 6 and not logs,
+              f"train (b): {out['final_step']} steps, logs {logs}")
+        check(all(np.isfinite(losses)) and losses[5] < losses[0],
+              f"train (b): losses {losses}")
+        step_ms = [1e3 * r["step_time_s"] for r in h]
+        med = float(np.median(step_ms[1:]))
+        ckpt_dir = TRAIN_CKPT / "step-6"
+        nbytes = sum(f.stat().st_size for f in ckpt_dir.iterdir())
+        n_params = sum(x.numel() for x in tree.leaves(params))
+        # the checkpoint against the state the run returned, bit for bit
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored, extra = CheckpointManager(TRAIN_CKPT).restore(
+            (params, opt_state))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree.leaves(restored), tree.leaves((params, opt_state))))
+        check(same and extra == {"step": 6, "data_state": {"step": 6,
+                                                           "seed": 0}},
+              f"train (b): the restored checkpoint differs (extra {extra})")
+        del restored
+        # one step by parts and one under torch.profiler, at the run's
+        # state, on the launcher's configuration
+        cfg = get_config("gpt2-large").replace(param_dtype="float32",
+                                               compute_dtype="float32")
+        net = Model(cfg, device=DEVICE)
+        data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=256,
+                           global_batch=8, seed=0, _step=6)
+        batch = {k: torch.as_tensor(v, device=DEVICE)
+                 for k, v in data.next_batch().items()}
+        opt_cfg = optim.AdamWConfig(lr=3e-4,
+                                    schedule=optim.warmup_cosine(20, 6))
+        split = split_step_ms(net, params, opt_state, batch, opt_cfg)
+        # forward + backward under each remat policy (the second of two
+        # calls) and its peak memory over the run's state
+        remat = {}
+        for policy in ("none", "full", "dots"):
+            m_r = Model(cfg.replace(remat=policy), device=DEVICE)
+            trainer.value_and_grad(m_r, params, batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            trainer.value_and_grad(m_r, params, batch)
+            torch.cuda.synchronize()
+            remat[policy] = dict(
+                ms=1e3 * (time.perf_counter() - t0),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        step = trainer.make_train_step(net, opt_cfg)
+        one = lambda: step(params, opt_state, batch)
+        prof = profile_run("one gpt2-large train step (8 x 256)", one, one,
+                           {k: 0 for k in KERNEL_NAMES}, top=10)
+        del params, opt_state, step, one
+        torch.cuda.empty_cache()
+        # a second run to step 8 resumes from step 6
+        t0 = time.perf_counter()
+        _, _, out8 = launch.train("gpt2-large", steps=8,
+                                  ckpt_dir=str(TRAIN_CKPT), device=DEVICE,
+                                  log=logs.append)
+        resume_s = time.perf_counter() - t0
+        losses8 = [r["loss"] for r in out8["history"]]
+        check(logs == ["[loop] resumed from step 6"]
+              and out8["final_step"] == 8 and len(losses8) == 2
+              and all(np.isfinite(losses8)),
+              f"train (b) resume: logs {logs}, step {out8['final_step']}, "
+              f"losses {losses8}")
+        steps_kept = CheckpointManager(TRAIN_CKPT).steps()
+        check(steps_kept == [6, 8], f"train (b): checkpoints {steps_kept}")
+    finally:
+        loop.CheckpointManager = real_manager
+        shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    write_s = [s for st, s, block in saves if st == 6 and block][0]
+    res = dict(params=n_params, losses=losses + losses8, step_ms=step_ms,
+               step_ms_median=med, tokens_per_s=8 * 256 * 1e3 / med,
+               peak_mem_gib=peak, run_s=run_s, resume_run_s=resume_s,
+               ckpt_bytes=nbytes, ckpt_write_s=write_s,
+               ckpt_restore_s=restore_s, saves=saves, split=split,
+               remat=remat,
+               profile=prof, disk_free_gib=free / 2 ** 30)
+    print(f"[train] (b) gpt2-large at its width ({n_params} params, 36 "
+          f"layers, d 1280), 8 x 256 tokens a step: losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)} then resumed "
+          f"{', '.join(f'{x:.4f}' for x in losses8)}; step "
+          f"{med:.1f} ms median after the first (all: "
+          f"{', '.join(f'{t:.1f}' for t in step_ms)}) = "
+          f"{res['tokens_per_s']:.0f} tokens/s; peak memory {peak:.2f} GiB",
+          flush=True)
+    print(f"[train] (b) one step by parts: forward "
+          f"{split['forward_ms']:.1f} ms, backward "
+          f"{split['backward_ms']:.1f} ms, optimizer "
+          f"{split['optimizer_ms']:.1f} ms; forward + backward by remat "
+          f"policy: " + ", ".join(f"{k} {v['ms']:.1f} ms (peak "
+                                  f"{v['peak_gib']:.2f} GiB)"
+                                  for k, v in remat.items()), flush=True)
+    print(f"[train] (b) checkpoint of step 6: {nbytes} bytes, written in "
+          f"{write_s:.2f} s (host copy + npz), restored in "
+          f"{restore_s:.2f} s and equal bit for bit; the 6-step run "
+          f"{run_s:.1f} s, the resume to 8 {resume_s:.1f} s; "
+          f"{res['disk_free_gib']:.0f} GiB free before ({device_desc})",
+          flush=True)
+    return res
+
+
+def train_resume(device_desc: str) -> dict:
+    """(c) tests/test_substrate.py's loop resume on the card."""
+    import shutil
+    from repro_torch import tree
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import Model
+    from repro_torch.train import TrainLoopConfig, optim, run_training
+    from repro_torch.train import trainer
+    cfg = tiny_train_config("olmo-1b")
+    model = Model(cfg, device=DEVICE)
+    p0 = model.init(torch.Generator(device=DEVICE).manual_seed(SEED))
+    o0 = optim.adamw_init(p0)
+    step = trainer.make_train_step(model, optim.AdamWConfig(lr=1e-3))
+    root = TRAIN_CKPT.parent / "train_resume_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def train_to(steps, d):
+        data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=16,
+                           global_batch=2, seed=7)
+        return run_training(step, p0, o0, data, TrainLoopConfig(
+            steps=steps, ckpt_dir=str(d), ckpt_every=5, log_every=100),
+            log=lambda *a: None)
+    try:
+        p_full, _, _ = train_to(10, root / "full")
+        train_to(5, root / "resume")
+        p_res, _, out = train_to(10, root / "resume")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(out["final_step"] == 10, f"train (c): step {out['final_step']}")
+    gap = max(float(((a - b).abs() / (1e-6 + 1e-5 * b.abs())).max())
+              for a, b in zip(tree.leaves(p_res), tree.leaves(p_full)))
+    equal = all(torch.equal(a, b) for a, b in zip(tree.leaves(p_res),
+                                                  tree.leaves(p_full)))
+    print(f"[train] (c) tiny olmo-1b, 10 steps against 5 + a resume to 10: "
+          f"params {'bit-equal' if equal else 'not bit-equal'}, worst "
+          f"{gap:.3f} of rtol 1e-5, atol 1e-6 ({device_desc})", flush=True)
+    check(gap <= 1.0, f"train (c): resumed params at {gap:.3f} of the "
+          f"tolerance")
+    return dict(bit_equal=equal, worst=gap)
+
+
+def train_learn_serve(device_desc: str) -> dict:
+    """(d) tests/test_system.py on the card: learn, then serve through the
+    contiguous kernel."""
+    from repro_torch.configs.base import ExecConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import Model, quantize_model_params
+    from repro_torch.train import optim, trainer
+    cfg = tiny_train_config("gpt2-large", n_layers=2, d_model=128,
+                            n_heads=4, n_kv_heads=4, vocab_size=128)
+    data = SyntheticLM(vocab_size=128, seq_len=32, global_batch=8, seed=5)
+    model = Model(cfg, device=DEVICE)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(SEED))
+    step = trainer.make_train_step(model, optim.AdamWConfig(
+        lr=1e-3, schedule=optim.warmup_cosine(10, 120)))
+    opt_state = optim.adamw_init(params)
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(120):
+        params, opt_state, m = step(params, opt_state, data.next_batch())
+        losses.append(float(m["loss"]))
+    train_s = time.perf_counter() - t0
+    check(losses[-1] < 0.7 * losses[0], f"train (d): loss {losses[0]} -> "
+          f"{losses[-1]}")
+    b = SyntheticLM(vocab_size=128, seq_len=32, global_batch=8,
+                    seed=77).next_batch()
+    digital = Model(cfg, ExecConfig(), device=DEVICE)
+    raceit = Model(cfg, ExecConfig.serving(mode="raceit"), device=DEVICE)
+    q = quantize_model_params(params)
+    with torch.no_grad():
+        ld = digital.forward(params, b)
+        launches = reset_launches()
+        lr = raceit.forward(q, b)
+        counts = dict(launches)
+        lp = swapped_to_plain(lambda: raceit.forward(q, b))
+    L = cfg.n_layers
+    check(counts["acam_attention"] == 2 * L
+          and counts["acam_attention_paged"] == 0
+          and counts["acam_attention_single"] == 0,
+          f"train (d): {counts} attention launches for one forward")
+    check(torch.equal(lr, lp), "train (d): the raceit forward with the "
+          "kernel differs from the plain version's")
+    agree = float((ld.argmax(-1) == lr.argmax(-1)).float().mean())
+    check(agree > 0.7, f"train (d): argmax agreement {agree}")
+    print(f"[train] (d) tiny gpt2-large, 120 steps in {train_s:.1f} s: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; raceit_q8 forward "
+          f"(contiguous launches {counts['acam_attention']} = 2 x {L}) "
+          f"equal to the plain version's bit for bit, argmax agreement "
+          f"with digital {agree:.3f} ({device_desc})", flush=True)
+    return dict(loss_first=losses[0], loss_last=losses[-1], train_s=train_s,
+                agree=agree, launches=counts)
+
+
+def phase_train(device_desc: str) -> dict:
+    res = {"card_vs_cpu": train_card_vs_cpu(device_desc)}
+    torch.cuda.empty_cache()
+    res["full_width"] = train_full_width(device_desc)
+    torch.cuda.empty_cache()
+    res["resume"] = train_resume(device_desc)
+    res["learn_serve"] = train_learn_serve(device_desc)
+    res["launches"] = res["learn_serve"]["launches"]
+    return res
+
+
 def smem_report(device_desc: str, d: int = 320) -> list:
     """Each attention kernel's dynamic shared memory at head dim ``d``, from
     the launchers' own layout code: the contiguous kernels at gemma3-4b's
@@ -4187,7 +4557,9 @@ def main() -> None:
     lap("20 mrope paged")
     noise_res = phase_noise(desc)
     lap("21 noise")
-    print(f"[time] phases 3 to 22: {time.perf_counter() - t_start:.1f} s; "
+    train_res = phase_train(desc)
+    lap("23 train")
+    print(f"[time] phases 3 to 23: {time.perf_counter() - t_start:.1f} s; "
           + ", ".join(f"{k} {v:.1f} s" for k, v in laps.items()), flush=True)
 
     # each kernel's headline: its main-path decode shape in mode pot
@@ -4215,6 +4587,8 @@ def main() -> None:
                                    + encoder_res["launches"][
                                        "acam_attention"]
                                    + whisper_res["launches"][
+                                       "acam_attention"]
+                                   + train_res["launches"][
                                        "acam_attention"]),
                 "acam_attention_single": (
                     solo_res["launches"]["acam_attention_single"]
@@ -4270,6 +4644,7 @@ def main() -> None:
                                     "mrope_paged": mrope_res,
                                     "noise": noise_res,
                                     "tp": tp_res,
+                                    "train": train_res,
                                     "laps": laps,
                                     "smem_d320": smem_rows}),
           flush=True)

@@ -1,2 +1,6 @@
-"""Weights across from the reference package (port of repro.ckpt's format)."""
-from .reference import load_reference_checkpoint, params_from_numpy  # noqa: F401
+"""Checkpoints of the port (the reference's format) and weights across from
+the reference package."""
+from .manager import CheckpointManager  # noqa: F401
+from .reference import (load_reference_checkpoint,  # noqa: F401
+                        load_reference_training_checkpoint,
+                        opt_state_from_numpy, params_from_numpy)

@@ -12,6 +12,12 @@ Two ways in, one layout out (the port's: ``{"embed", "final_norm",
   ``meta.json`` with each leaf's dtype (bfloat16 leaves are stored as uint16
   views).
 
+The optimizer state crosses the same way (`opt_state_from_numpy`,
+`load_reference_training_checkpoint`): the reference's AdamW moments ``mu``
+and ``nu`` are scan-stacked exactly like its parameters, and ``step`` is a
+scalar, so a run that the reference's `run_training` started resumes in the
+port's `repro_torch.train.run_training`.
+
 The reference stacks each period position's layers along a leading scan
 dimension (``blocks/scan/<j>`` holds layers ``r*P + j``) and keeps the
 ``n_layers % P`` remainder in ``blocks/tail`` (an encoder-decoder's
@@ -36,7 +42,8 @@ from .. import resolve_device
 from ..configs.base import ModelConfig
 from ..models.model import encoder_config
 
-__all__ = ["params_from_numpy", "load_reference_checkpoint"]
+__all__ = ["params_from_numpy", "opt_state_from_numpy",
+           "load_reference_checkpoint", "load_reference_training_checkpoint"]
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -71,6 +78,15 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
     else:
         out["blocks"] = _layers(tree["blocks"], cfg, cfg.n_layers, device)
     return out
+
+
+def opt_state_from_numpy(state: dict, cfg: ModelConfig, device=None) -> dict:
+    """The reference's AdamW state ``{"mu", "nu", "step"}`` -> the port's:
+    the moments in the port's parameter layout, ``step`` an int32 scalar."""
+    device = resolve_device(device)
+    return {"mu": params_from_numpy(state["mu"], cfg, device),
+            "nu": params_from_numpy(state["nu"], cfg, device),
+            "step": _tensor(state["step"], device).to(torch.int32)}
 
 
 def _layers(stack: dict, cfg: ModelConfig, n_layers: int, device,
@@ -136,16 +152,8 @@ def _step_dir(directory: Path, step: Optional[int]) -> Path:
     return directory / f"step-{steps[-1] if step is None else step}"
 
 
-def load_reference_checkpoint(directory, cfg: ModelConfig,
-                              step: Optional[int] = None,
-                              device=None) -> dict:
-    """Read a reference checkpoint of model parameters into the port's layout.
-
-    The saved tree may be the parameters themselves or a tuple whose first
-    element they are (the launchers save ``(params, opt_state)``). Tensors
-    land on ``device``: ``cuda`` unless the caller asks for the CPU.
-    """
-    device = resolve_device(device)
+def _read(directory, step: Optional[int]) -> tuple:
+    """(the saved tree as nested dicts and lists of arrays, meta)."""
     d = _step_dir(Path(directory), step)
     meta = json.loads((d / "meta.json").read_text())
     dtypes = meta.get("dtypes", {})
@@ -158,7 +166,35 @@ def load_reference_checkpoint(directory, cfg: ModelConfig,
                                               ).view(torch.bfloat16)
             else:
                 flat[path] = arr
-    tree = _nest(flat)
+    return _nest(flat), meta
+
+
+def load_reference_checkpoint(directory, cfg: ModelConfig,
+                              step: Optional[int] = None,
+                              device=None) -> dict:
+    """Read a reference checkpoint of model parameters into the port's layout.
+
+    The saved tree may be the parameters themselves or a tuple whose first
+    element they are (the launchers save ``(params, opt_state)``). Tensors
+    land on ``device``: ``cuda`` unless the caller asks for the CPU.
+    """
+    device = resolve_device(device)
+    tree, _ = _read(directory, step)
     if isinstance(tree, list):
         tree = tree[0]
     return params_from_numpy(tree, cfg, device)
+
+
+def load_reference_training_checkpoint(directory, cfg: ModelConfig,
+                                       step: Optional[int] = None,
+                                       device=None) -> tuple:
+    """Read the ``(params, opt_state)`` checkpoint of the reference's
+    `run_training` (paths ``0/...``, ``1/mu/...``, ``1/nu/...``,
+    ``1/step``) -> the port's ``(params, opt_state, extra)``; ``extra``
+    holds ``step`` and ``data_state``. Saved with a
+    `repro_torch.ckpt.CheckpointManager` into a run's directory, the state
+    resumes in `repro_torch.train.run_training`."""
+    device = resolve_device(device)
+    (params, state), meta = _read(directory, step)
+    return (params_from_numpy(params, cfg, device),
+            opt_state_from_numpy(state, cfg, device), meta["extra"])

@@ -29,7 +29,8 @@ back to the CPU).
 from __future__ import annotations
 
 import argparse
-import json
+
+from . import parse_overrides
 
 
 def parse_tenant_weights(pairs: list[str]) -> dict:
@@ -137,16 +138,9 @@ def main(argv=None):
         mesh.build(kind=device.type)  # before the weights: fail fast
         print(f"[serve] device mesh: {mesh.describe()} "
               f"({mesh.n_devices} devices)")
-    overrides = {}
-    for kv in args.set:
-        k, v = kv.split("=", 1)
-        try:
-            v = json.loads(v)
-        except json.JSONDecodeError:
-            pass
-        overrides[k] = v
     cfg = get_config(args.arch).replace(
-        param_dtype="float32", compute_dtype="float32", **overrides)
+        param_dtype="float32", compute_dtype="float32",
+        **parse_overrides(args.set))
     if args.ckpt:
         from repro_torch.ckpt import load_reference_checkpoint
         params = load_reference_checkpoint(args.ckpt, cfg, device=device)

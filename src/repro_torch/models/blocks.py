@@ -19,9 +19,12 @@ slot is re-admitted.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ExecConfig, ModelConfig
 from ..exec.plan import ExecPlan, as_plan
@@ -179,6 +182,35 @@ def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, device,
             for i in range(cfg.n_layers)]
 
 
+# the weight products: matrix products with no batch dimension, the
+# analogue of JAX's dots_with_no_batch_dims_saveable; an einsum lowers such
+# a product (attention's output projection) to a bmm of batch 1
+_WEIGHT_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_weight_products(ctx, op, *args, **kwargs):
+    saved = op in _WEIGHT_PRODUCTS or (op is torch.ops.aten.bmm.default
+                                       and args[0].shape[0] == 1)
+    return (CheckpointPolicy.MUST_SAVE if saved
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_wrap(fn, cfg: ModelConfig):
+    """``fn`` under activation checkpointing, by ``cfg.remat``: ``none``
+    keeps every activation, ``full`` recomputes the layer in the backward
+    pass, ``dots`` keeps the weight products' outputs and recomputes the
+    rest. Recomputation changes no number."""
+    if cfg.remat == "none":
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_weight_products)
+    elif cfg.remat != "full":
+        raise ValueError(f"remat={cfg.remat!r}: none, full or dots")
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
 def apply_stack(params: list, x: torch.Tensor, *, cfg: ModelConfig,
                 plan: ExecPlan | ExecConfig, positions: torch.Tensor,
                 caches: Optional[list], pad_lens: Optional[torch.Tensor] = None,
@@ -186,7 +218,7 @@ def apply_stack(params: list, x: torch.Tensor, *, cfg: ModelConfig,
                 block_table: Optional[torch.Tensor] = None,
                 page_size: Optional[int] = None,
                 chunk_offs: Optional[torch.Tensor] = None,
-                enc_kv: Optional[list] = None):
+                enc_kv: Optional[list] = None, use_remat: bool = False):
     """Run every layer of ``params``; ``caches`` is `init_stack_cache`'s
     list (or None).
 
@@ -194,13 +226,18 @@ def apply_stack(params: list, x: torch.Tensor, *, cfg: ModelConfig,
     ``block_table`` + ``page_size`` mark the caches as block-paged pools
     (one table for every layer); ``chunk_offs`` makes the call a
     chunked-prefill step; ``enc_kv`` is a decoder stack's per-layer cross
-    (k, v) over the encoder output.
+    (k, v) over the encoder output. ``use_remat`` checkpoints each layer
+    as ``cfg.remat`` says (`_remat_wrap`) when autograd records (a cache-free
+    call with grad enabled); serving under ``torch.no_grad()`` is unchanged.
     """
     plan = as_plan(cfg, plan)
     new_caches = [] if caches is not None else None
+    layer_fn = apply_layer
+    if use_remat and caches is None and torch.is_grad_enabled():
+        layer_fn = _remat_wrap(apply_layer, cfg)
     for i, p in enumerate(params):
         mixer, ffn_kind = cfg.layer_spec(i)
-        x, nc = apply_layer(p, x, cfg=cfg, plan=plan, mixer=mixer,
+        x, nc = layer_fn(p, x, cfg=cfg, plan=plan, mixer=mixer,
                             ffn_kind=ffn_kind, positions=positions,
                             cache=caches[i] if caches is not None else None,
                             pad_lens=pad_lens, pad_prompt_len=pad_prompt_len,

@@ -6,6 +6,7 @@ The port of the inference half of `repro.models.model`:
     model = Model(cfg, exec_cfg, device="cuda")
     params = model.init(torch.Generator(device).manual_seed(0))
     logits = model.forward(params, {"tokens": ..., "enc_feats": ...})
+    loss = model.loss_fn(params, {"tokens": ..., "loss_mask": ...})
     cache = model.init_cache(batch, max_len)            # solo / buckets
     logits, cache = model.prefill(params, prompts, cache, pad_lens=None)
     logits, cache = model.decode_step(params, token, cache)
@@ -203,7 +204,8 @@ class Model:
 
     def _trunk(self, params, tokens, positions, cache, pad_lens=None,
                pad_prompt_len=None, slot_lens=None, block_table=None,
-               page_size=None, chunk_offs=None, enc_feats=None):
+               page_size=None, chunk_offs=None, enc_feats=None,
+               use_remat=False):
         cfg = self.cfg
         x = layers.embed(params["embed"], tokens,
                          positions if positions.ndim == 2 else positions[0],
@@ -228,21 +230,55 @@ class Model:
                 positions=positions, caches=cache, pad_lens=pad_lens,
                 pad_prompt_len=pad_prompt_len, slot_lens=slot_lens,
                 block_table=block_table, page_size=page_size,
-                chunk_offs=chunk_offs)
+                chunk_offs=chunk_offs, use_remat=use_remat)
         return layers.apply_norm(params["final_norm"], x, cfg), new_cache
 
-    def forward(self, params: Params, batch: dict) -> torch.Tensor:
+    def forward(self, params: Params, batch: dict,
+                use_remat: bool = True) -> torch.Tensor:
         """Logits (B, S, V) of a whole sequence, no cache: the entry point
-        of encoder-only models. ``batch`` holds ``tokens`` (B, S), optional
-        ``positions`` (B, S) or (3, B, S) (M-RoPE), and ``enc_feats`` (B,
-        encoder_len, d_model) for an encoder-decoder."""
+        of encoder-only models and of training. ``batch`` holds ``tokens``
+        (B, S), optional ``positions`` (B, S) or (3, B, S) (M-RoPE), and
+        ``enc_feats`` (B, encoder_len, d_model) for an encoder-decoder.
+        ``use_remat`` checkpoints a decoder-only stack's layers when
+        autograd records (`blocks.apply_stack`), as the reference's does;
+        the numbers do not change."""
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         positions = batch.get("positions")
         positions = (self._positions(tokens) if positions is None
                      else torch.as_tensor(positions, device=self.device))
+        enc_feats = batch.get("enc_feats")
+        if enc_feats is not None:
+            enc_feats = torch.as_tensor(enc_feats, device=self.device)
         x, _ = self._trunk(params, tokens, positions, None,
-                           enc_feats=batch.get("enc_feats"))
+                           enc_feats=enc_feats, use_remat=use_remat)
         return layers.unembed(params["embed"], x, self.cfg, self.plan)
+
+    def loss_fn(self, params: Params, batch: dict,
+                use_remat: bool = True) -> torch.Tensor:
+        """Next-token cross entropy, the mean over tokens that
+        ``batch["loss_mask"]`` (optional, (B, S)) keeps: logsumexp minus
+        the gold logit, in float32. A decoder predicts token t + 1 from
+        position t; an encoder-only model predicts each token at its own
+        position."""
+        logits = self.forward(params, batch, use_remat=use_remat)
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        if self.cfg.causal:
+            targets = tokens[:, 1:]
+            logits = logits[:, :-1]
+        else:
+            targets = tokens
+        mask = batch.get("loss_mask")
+        if mask is None:
+            mask = torch.ones(targets.shape, dtype=torch.float32,
+                              device=self.device)
+        else:
+            mask = torch.as_tensor(mask, device=self.device)[
+                :, -targets.shape[1]:].float()
+        logits = logits.float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.take_along_dim(logits, targets[..., None], dim=-1)[..., 0]
+        nll = (logz - gold) * mask
+        return nll.sum() / torch.clamp_min(mask.sum(), 1.0)
 
     def prefill(self, params: Params, tokens: torch.Tensor, cache,
                 enc_feats=None, positions=None, pad_lens=None):
