@@ -292,6 +292,24 @@ Phases, in order; any failure raises and the script exits non-zero:
             argmax agrees with the digital forward on more than 0.7 of the
             positions, and it equals the forward with the kernel swapped
             for its plain version bit for bit.
+24. dryrun  the dry-run and the static analysis against the card.
+            gpt2-large at its published width, resident int8 through
+            ExecConfig.serving(mode="raceit"), one decode step at
+            ShapeSpec("decode_1k", 1024, 8, "decode") on `init_cache` (the
+            contiguous kernel runs). (a) The dry-run's bytes of params plus
+            cache (`launch.inputs.tree_bytes` over the same trees made on
+            meta) equal the bytes the card's caching allocator was asked
+            for them (its requested_bytes), exactly, and its blocks hold at
+            least those bytes in 512-byte granules; its traced peak of live
+            storage (`op_analysis.analyze_ops` on meta) beside the card's
+            peak over the step (max_memory_allocated, and requested). (b) `analyze_ops`
+            over the real step on the card gives the flops, memory bytes,
+            op counts and kernel launches (names, bytes, operations) of the
+            trace on meta. (c) Every dynamic shared-memory layout the
+            kernelcheck plan checks meet (`analysis.kernelcheck`, the
+            serving domain) equals the sources' own export
+            (acam_attention_{paged,contiguous,single}_smem) and is at most
+            the card's cudaDevAttrMaxSharedMemoryPerBlockOptin.
 
 Phase 9 also drives the float attention wrappers with the reference's
 default fold_scale=False at D 128 (the kernels divide by sqrt(d)), with
@@ -370,7 +388,6 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
-INT8_OPS_PER_S = 1979e12    # H100 SXM dense int8 tensor-core peak
 SEED = 0
 DEVICE = "cuda"  # the card; phases 3 (new kernels), 9 and 10 read it
 
@@ -559,18 +576,15 @@ def attention_case(name, *, n_slots, gps, sq, d, page_size, max_pages, mode,
 
 
 def attention_bound_ms(c) -> tuple[float, str]:
-    """Least time for the call: every input byte read once (live pages
-    only), the output written once, against the operations at int8 peak."""
+    """Least time for the call (`kernels/cost.py`): every input byte read
+    once (live pages only), the output written once, against the operations
+    at int8 peak."""
+    from repro_torch.kernels import cost
     G, sq, d = c["q"].shape
     live = int(sum(c["lens"])) * c["gps"]  # live key rows over all groups
-    nbytes = (c["q"].numel() + 2 * live * d + 4 * G * sq * d
-              + c["bt"].numel() * 4 + c["kv_len"].numel() * 4)
-    if c["mask"] is not None:
-        nbytes += c["mask"].numel()
-    ops = 2 * 2 * sq * live * d  # q.K and P.V, a multiply and an add each
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
-    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
-            else "operations")
+    return cost.bound_ms(*cost.total(cost.paged_attention(
+        G, sq, d, live, c["bt"].numel(), c["kv_len"].numel(),
+        0 if c["mask"] is None else c["mask"].numel())))
 
 
 def contiguous_case(name, *, G, sq, sk, d, mode, kv_len=None, causal=False,
@@ -624,19 +638,18 @@ def contiguous_case(name, *, G, sq, sk, d, mode, kv_len=None, causal=False,
 
 
 def contiguous_bound_ms(c) -> tuple[float, str]:
-    """Least time for a contiguous call: q, K and V of the live keys, the
-    mask and the int32 output moved once; q.K over the pairs that are not
-    masked (a masked key skips its product) and PROB.V over the live keys,
-    a multiply and an add each, at the int8 peak."""
+    """Least time for a contiguous call (`kernels/cost.py`): q, K and V of
+    the live keys, the mask and the int32 output moved once; q.K over the
+    pairs that are not masked (a masked key skips its product) and PROB.V
+    over the live keys, a multiply and an add each, at the int8 peak."""
+    from repro_torch.kernels import cost
     G, sq, d = c["q"].shape
     lens = c["lens"].long()
     live = int(lens.sum())
-    nbytes = c["q"].numel() + 2 * live * d + 4 * G * sq * d + 4 * G
     sk = c["k"].shape[1]
     kpos = torch.arange(sk, device=lens.device)
     valid = kpos[None, None, :] < lens[:, None, None]          # (G, 1, Sk)
     if c["mask"] is not None:
-        nbytes += c["mask"].numel()
         g = torch.arange(G, device=lens.device)
         m = c["mask"][g // (G // c["mask"].shape[0])] != 0
         pairs = int((m & valid).sum())
@@ -645,10 +658,9 @@ def contiguous_bound_ms(c) -> tuple[float, str]:
         pairs = int(((kpos[None, :] <= rows[:, None])[None] & valid).sum())
     else:
         pairs = live * sq
-    ops = 2 * d * (pairs + sq * live)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
-    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
-            else "operations")
+    return cost.bound_ms(*cost.total(cost.contiguous_attention(
+        G, sq, d, live, pairs,
+        0 if c["mask"] is None else c["mask"].numel())))
 
 
 def sqrt_d_args(c):
@@ -1207,12 +1219,11 @@ SOFTMAX_SHAPES = (("gpt2-large staged prefill", 20, 512, 512),
                   ("gpt2-large decode at n_ctx", 160, 1, 1024))
 
 
-def bound_of(nbytes: float, ops: float) -> tuple[float, str]:
-    """Least time: bytes over 3.35 TB/s against int8 operations over 1979
-    TOP/s."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
-    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
-            else "operations")
+def bound_of(launches) -> tuple[float, str]:
+    """Least time of a call's launches (`kernels/cost.py`): bytes over 3.35
+    TB/s against int8 operations over 1979 TOP/s."""
+    from repro_torch.kernels import cost
+    return cost.bound_ms(*cost.total(launches))
 
 
 def check_codes_case(kernel_name, kernel, launch, plain, bound, library=None):
@@ -1277,9 +1288,9 @@ def lut_cases(gen):
 
 
 def check_lut_case(x, lut, bias):
-    from repro_torch.kernels import acam_lut as L
+    from repro_torch.kernels import acam_lut as L, cost
     n = x.numel()
-    bound = bound_of(n * x.element_size() + 4 * n + 4 * lut.numel(), n)
+    bound = bound_of(cost.lut(n, x.element_size(), lut.numel()))
     return check_codes_case(
         "acam_lut", lambda: L.acam_lut_2d(x, lut, bias),
         lambda: L._launch(x, lut, bias),
@@ -1297,12 +1308,12 @@ def xbar_configs():
 
 def check_mvm_case(x, w, cfg, bk=None):
     from repro_torch.core.crossbar import adc_step
-    from repro_torch.kernels import acam_mvm as M
+    from repro_torch.kernels import acam_mvm as M, cost
     m, k = x.shape
     n = w.shape[1]
     planes = (1 if adc_step(cfg, cfg.rows) is None
               else cfg.num_input_slices * cfg.num_weight_slices)
-    bound = bound_of(m * k + k * n + 4 * m * n, 2 * m * n * k * planes)
+    bound = bound_of(cost.mvm(m, k, n, planes))
     library = None
     if planes == 1 and m > 16 and k % 8 == 0 and n % 8 == 0:
         library = lambda: torch._int_mm(x, w)
@@ -1331,9 +1342,9 @@ def softmax_rows(gen, heads, queries, keys):
 
 
 def check_softmax_case(codes, mode):
-    from repro_torch.kernels import acam_softmax as S
+    from repro_torch.kernels import acam_softmax as S, cost
     n = codes.numel()
-    bound = bound_of(n * codes.element_size() + 4 * n + 4 * 4 * 256, 4 * n)
+    bound = bound_of(cost.softmax(n, codes.element_size()))
     return check_codes_case(
         "acam_softmax", lambda: S.acam_softmax_codes(codes, mode),
         lambda: S._launch(codes, mode),
@@ -4468,6 +4479,148 @@ def headline(root: Path) -> None:
         {k: min(v) for k, v in times.items()}) + f" ({desc})", flush=True)
 
 
+# ---------------------------------------------- phase 24: dry-run vs card
+
+def phase_dryrun(device_desc: str) -> dict:
+    """The dry-run's reckoning of gpt2-large's decode step against the card
+    (a, b) and the kernelcheck shared-memory mirror against the sources'
+    exports (c); see the module's docstring."""
+    import ctypes
+    import gc
+
+    from repro_torch.analysis import kernelcheck as KC
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ExecConfig, ShapeSpec
+    from repro_torch.kernels.build import bind
+    from repro_torch.launch import inputs
+    from repro_torch.launch.op_analysis import analyze_ops
+    from repro_torch.models import Model, quantize_model_params
+
+    t0 = time.perf_counter()
+    cfg = get_config("gpt2-large")
+    shape = ShapeSpec("decode_1k", 1024, 8, "decode")
+    B, L = shape.global_batch, shape.seq_len
+    ec = ExecConfig.serving(mode="raceit")
+
+    # the dry-run's reckoning, on meta (the first trace fills the lazily
+    # made tables; the second is the step's own)
+    meta = Model(cfg, ec, device="meta")
+    mparams = quantize_model_params(meta.init(torch.Generator()))
+    mcache = meta.init_cache(B, L)
+    want_bytes = inputs.tree_bytes(mparams) + inputs.tree_bytes(mcache)
+    want_512 = (inputs.tree_bytes(mparams, granule=512)
+                + inputs.tree_bytes(mcache, granule=512))
+    mtok = torch.zeros((B, 1), dtype=torch.int32, device="meta")
+    analyze_ops(meta.decode_step, mparams, mtok, mcache)
+    mcost, _ = analyze_ops(meta.decode_step, mparams, mtok, mcache)
+    t_meta = time.perf_counter() - t0
+
+    # (a) the card's allocation for the same trees, and the step's peak
+    def requested():  # bytes asked of the caching allocator, unrounded
+        return torch.cuda.memory_stats()["requested_bytes.all.current"]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base, base_req = torch.cuda.memory_allocated(), requested()
+    model = Model(cfg, ec, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = quantize_model_params(model.init(gen))
+    cache = model.init_cache(B, L)
+    torch.cuda.synchronize()
+    got_bytes = requested() - base_req
+    got_blocks = torch.cuda.memory_allocated() - base
+    check(got_bytes == want_bytes,
+          f"dry-run params + cache {want_bytes} B, the card's allocator "
+          f"was asked for {got_bytes} B")
+    check(got_blocks >= want_512, f"{got_blocks} B of blocks for "
+                                  f"{want_512} B of 512-byte granules")
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), dtype=torch.int32,
+                        device="cuda")
+    out = model.decode_step(params, tok, cache)   # tables, kernel binding
+    del out
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base   # args and lasting tables
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    logits, _ = model.decode_step(params, tok, cache)
+    torch.cuda.synchronize()
+    card_peak = torch.cuda.max_memory_allocated() - base
+    card_peak_req = (torch.cuda.memory_stats()["requested_bytes.all.peak"]
+                     - base_req)
+    launches = dict(launch_counts())
+    check(launches["acam_attention"] == 2 * cfg.n_layers,
+          f"{launches} launches for one decode step")
+    check(bool(torch.isfinite(logits).all()), "non-finite decode logits")
+    del logits
+
+    # (b) the counter over the card's step against meta's
+    reset_launches()
+    ccost, (logits, _) = analyze_ops(model.decode_step, params, tok, cache)
+    torch.cuda.synchronize()
+    check(launch_counts()["acam_attention"] == 2 * cfg.n_layers,
+          "the counted step did not launch the contiguous kernel")
+    check(ccost.flops == mcost.flops and
+          ccost.memory_bytes == mcost.memory_bytes,
+          f"card flops {ccost.flops} bytes {ccost.memory_bytes}, meta "
+          f"{mcost.flops} {mcost.memory_bytes}")
+    check(ccost.ops == mcost.ops,
+          f"op counts differ: {dict(ccost.ops - mcost.ops)} on the card, "
+          f"{dict(mcost.ops - ccost.ops)} on meta")
+    check(ccost.launches == mcost.launches, "kernel launches differ")
+    del logits, params, cache
+    torch.cuda.empty_cache()
+    t_ab = time.perf_counter() - t0 - t_meta
+
+    # (c) the shared-memory mirror against the sources' exports
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    _, cov, tally = KC.check_serving_plans()
+    I = ctypes.c_int
+    exports = {"acam_attention_paged_smem": bind(
+                   "acam_attention", "acam_attention_paged_smem", [I] * 10),
+               "acam_attention_contiguous_smem": bind(
+                   "acam_attention", "acam_attention_contiguous_smem",
+                   [I] * 10),
+               "acam_attention_single_smem": bind(
+                   "acam_attention_single", "acam_attention_single_smem",
+                   [I] * 8)}
+    probes = KC.smem_probes(tally)
+    by_export = {}
+    for name, args, nbytes in probes:
+        got = exports[name](*args)
+        check(got == nbytes, f"{name}{args}: the source says {got} B, the "
+                             f"mirror {nbytes} B")
+        check(got <= optin, f"{name}{args}: {got} B over the card's "
+                            f"{optin} B")
+        by_export[name] = by_export.get(name, 0) + 1
+    secs = time.perf_counter() - t0
+    res = dict(params_cache_bytes=got_bytes, dryrun_bytes=want_bytes,
+               params_cache_blocks=got_blocks, dryrun_bytes_512=want_512,
+               traced_peak_bytes=mcost.peak_live_bytes,
+               traced_arg_bytes=mcost.arg_bytes, card_held_bytes=held,
+               card_peak_bytes=card_peak, card_peak_requested=card_peak_req,
+               peak_ratio=card_peak / mcost.peak_live_bytes,
+               peak_ratio_requested=card_peak_req / mcost.peak_live_bytes,
+               flops=ccost.flops, memory_bytes=ccost.memory_bytes,
+               n_ops=sum(ccost.ops.values()), launches=launches,
+               smem_probes=len(probes), smem_by_export=by_export,
+               smem_max=max(n for _, _, n in probes), smem_optin=optin,
+               kernelcheck=cov, meta_s=t_meta, card_s=t_ab, seconds=secs)
+    print(f"[dryrun] gpt2-large decode_1k raceit_q8: params + cache "
+          f"{got_bytes} B asked of the allocator = {want_bytes} B reckoned "
+          f"({got_blocks} B of blocks, {want_512} B in 512-byte granules); "
+          f"traced peak {mcost.peak_live_bytes} B, card peak over the step "
+          f"{card_peak} B of blocks (ratio {res['peak_ratio']:.4f}), "
+          f"{card_peak_req} B asked (ratio "
+          f"{res['peak_ratio_requested']:.4f}); counter on the card = on meta: "
+          f"{ccost.flops:.6g} flops, {ccost.memory_bytes:.6g} B, "
+          f"{res['n_ops']} ops, {len(ccost.launches)} kernel launches; "
+          f"{len(probes)} smem layouts equal to the sources' exports "
+          f"({by_export}), max {res['smem_max']} B <= {optin} B opt-in; "
+          f"{secs:.1f} s (meta {t_meta:.1f} s, card {t_ab:.1f} s) "
+          f"({device_desc})", flush=True)
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
@@ -4559,7 +4712,9 @@ def main() -> None:
     lap("21 noise")
     train_res = phase_train(desc)
     lap("23 train")
-    print(f"[time] phases 3 to 23: {time.perf_counter() - t_start:.1f} s; "
+    dryrun_res = phase_dryrun(desc)
+    lap("24 dryrun")
+    print(f"[time] phases 3 to 24: {time.perf_counter() - t_start:.1f} s; "
           + ", ".join(f"{k} {v:.1f} s" for k, v in laps.items()), flush=True)
 
     # each kernel's headline: its main-path decode shape in mode pot
@@ -4645,6 +4800,7 @@ def main() -> None:
                                     "noise": noise_res,
                                     "tp": tp_res,
                                     "train": train_res,
+                                    "dryrun": dryrun_res,
                                     "laps": laps,
                                     "smem_d320": smem_rows}),
           flush=True)

@@ -8,3 +8,10 @@ PORTED = ["gpt2-large", "command-r-35b", "olmo-1b", "starcoder2-15b",
           "gemma3-4b", "mixtral-8x22b", "llama4-scout-17b-a16e",
           "mamba2-130m", "jamba-v0.1-52b", "bert-base", "bert-large",
           "whisper-tiny", "qwen2-vl-2b"]
+
+# the reference's two lists (`repro.configs.catalog`): the assigned grid the
+# dry-run covers, and the paper's own models
+ASSIGNED = ["llama4-scout-17b-a16e", "mixtral-8x22b", "command-r-35b",
+            "gemma3-4b", "starcoder2-15b", "olmo-1b", "mamba2-130m",
+            "jamba-v0.1-52b", "qwen2-vl-2b", "whisper-tiny"]
+PAPER_OWN = ["bert-base", "bert-large", "gpt2-large"]

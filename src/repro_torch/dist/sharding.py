@@ -140,7 +140,8 @@ class MeshSpec:
         axes; a device may repeat (several shards on one card). With none
         given, the cached mesh of ``kind``, else ``cuda:0 .. n-1`` for
         ``kind="cuda"`` (raising, with the count, when the process has
-        fewer cards) or ``cpu`` at every position for ``kind="cpu"``.
+        fewer cards) or ``cpu`` (``meta``) at every position for
+        ``kind="cpu"`` (``"meta"``: shapes only, for the dry-run).
         """
         if devices is not None:
             devs = [torch.device(d) for d in devices]
@@ -166,8 +167,8 @@ class MeshSpec:
                         f"may repeat a card: MeshSpec.build(['cuda:0'] * "
                         f"{self.n_devices}))")
                 devs = [torch.device("cuda", i) for i in range(self.n_devices)]
-            elif kind == "cpu":
-                devs = [torch.device("cpu")] * self.n_devices
+            elif kind in ("cpu", "meta"):
+                devs = [torch.device(kind)] * self.n_devices
             else:
                 raise ValueError(f"no mesh of device kind {kind!r}")
         grid = np.empty(len(devs), dtype=object)

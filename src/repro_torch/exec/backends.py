@@ -78,11 +78,12 @@ def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     CUDA. On the card this is ``torch._int_mm``, the int8 tensor-core GEMM
     with an int32 accumulator (it wants M > 16 and K, N multiples of 8: M is
     padded with zero rows); elsewhere, and for other widths, a float64
-    product of the codes, exact below 2^53.
+    product of the codes, exact below 2^53. A ``meta`` trace (the dry-run)
+    follows the card's ops.
     """
     M, K = a.shape
     N = b.shape[1]
-    if a.is_cuda and K % 8 == 0 and N % 8 == 0:
+    if a.device.type in ("cuda", "meta") and K % 8 == 0 and N % 8 == 0:
         pad = max(0, 17 - M)
         if pad:
             a = torch.cat([a, a.new_zeros((pad, K))])

@@ -21,12 +21,14 @@ CUDA kernel and a plain PyTorch version in the reference's op order:
 
 The shape rule alone picks between the last two, as in the reference. The
 wrapper picks by the device of its inputs alone: a CUDA tensor launches the
-kernel or raises, a CPU tensor runs the plain version. The CPU tests hold
-the plain versions bit for bit against the Pallas kernels, and the chip
-check holds each CUDA kernel against its plain version. ``scale_by_sqrt_d``
-divides the logits by sqrt(d) in every layout as the reference does
-(`sqrt_d_rule`); the CUDA kernels take head dims up to 320 (gemma3-4b's),
-padded to a multiple of 4 with zero codes.
+kernel or raises, a CPU tensor runs the plain version, and a ``meta``
+tensor (the dry-run) gets the kernel's outputs with nothing computed; its
+work is reported to an active op counter (`repro_torch.kernels.cost`). The
+CPU tests hold the plain versions bit for bit against the Pallas kernels,
+and the chip check holds each CUDA kernel against its plain version.
+``scale_by_sqrt_d`` divides the logits by sqrt(d) in every layout as the
+reference does (`sqrt_d_rule`); the CUDA kernels take head dims up to 320
+(gemma3-4b's), padded to a multiple of 4 with zero codes.
 
 Row coupling is part of the function, as in the reference: the call-wide
 cmax requantizes every row of the call, including the pad rows of slots that
@@ -45,6 +47,7 @@ from ..core import ops as acam_ops
 from ..core.ops import LOGIT_FMT, PROB_FMT
 from ..core.quant import (PoTFormat, pot_decode_f32, pot_encode, recip_scale,
                           ref_sum, sum_chunks)
+from . import cost
 
 __all__ = ["acam_attention_codes", "acam_attention_codes_plain",
            "acam_attention_contiguous_plain", "acam_attention_single_plain",
@@ -579,6 +582,15 @@ def _launch_single(q_codes, k_codes, v_codes, logit_scale, mask, lens,
     return out, cells[0]
 
 
+def _launch_meta(q_codes, *args, **kw):
+    """A launch on ``meta`` tensors: the kernel's outputs, (G, Sq, D) int32
+    and a () int32 cmax, with nothing computed (shapes only, for the
+    dry-run; the op counter takes the launch's work from `cost`)."""
+    return (torch.empty(q_codes.shape, dtype=torch.int32,
+                        device=q_codes.device),
+            torch.empty((), dtype=torch.int32, device=q_codes.device))
+
+
 def _check_operands(named, dev):
     for name, t, dt in named:
         if t.dtype != dt:
@@ -657,7 +669,7 @@ def acam_attention_codes(
         raise ValueError(f"mode must be one of {FUSED_SOFTMAX_MODES}, got {mode!r}")
     G, Sq, D = q_codes.shape
     dev = q_codes.device
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"no implementation for device {dev}")
     logit_scale, rsd = sqrt_d_rule(
         torch.as_tensor(logit_scale, dtype=torch.float32, device=dev),
@@ -689,14 +701,22 @@ def acam_attention_codes(
                              f"got {tuple(mask.shape)}")
         mask = mask.to(device=dev, dtype=torch.int8).contiguous()
     single = one_tile(G, Sq, Sk)
-    if dev.type == "cuda":
-        impl = _padded_to_4(_launch_single if single else _launch_contiguous,
-                            3)
-    else:
+    args = (q_codes, k_codes, v_codes, logit_scale, mask, lens, per_row,
+            mode, cmax_floor, q_offset, causal)
+    if dev.type == "cpu":
         impl = (acam_attention_single_plain if single
                 else acam_attention_contiguous_plain)
-    return impl(q_codes, k_codes, v_codes, logit_scale, mask, lens, per_row,
-                mode, cmax_floor, q_offset, causal, rsd=rsd)
+        return impl(*args, rsd=rsd)
+    if dev.type == "cuda":
+        impl = _launch_single if single else _launch_contiguous
+    else:
+        impl = _launch_meta
+    live = cost.static_live(G, Sk, kv_len)
+    with cost.counted(lambda: cost.contiguous_attention(
+            G, Sq, D, live, cost.static_pairs(G, Sq, Sk, live, causal,
+                                              q_offset),
+            0 if mask is None else mask.numel(), single)):
+        return _padded_to_4(impl, 3)(*args, rsd=rsd)
 
 
 def _paged_codes(q_codes, k_codes, v_codes, logit_scale, mask, kv_len, mode,
@@ -732,12 +752,15 @@ def _paged_codes(q_codes, k_codes, v_codes, logit_scale, mask, kv_len, mode,
             raise ValueError(f"mask must be (Gm, {Sq}, {Sk}) with Gm | {G}, "
                              f"got {tuple(mask.shape)}")
         mask = mask.to(torch.int8).contiguous()
-    if dev.type == "cuda":
-        impl = _padded_to_4(_launch_paged, 3)
-    else:
-        impl = acam_attention_codes_plain
-    return impl(q_codes, k_codes, v_codes, logit_scale, mask, kv_len, mode,
-                block_table, page_size, gps, cmax_floor, rsd=rsd)
+    args = (q_codes, k_codes, v_codes, logit_scale, mask, kv_len, mode,
+            block_table, page_size, gps, cmax_floor)
+    if dev.type == "cpu":
+        return acam_attention_codes_plain(*args, rsd=rsd)
+    impl = _launch_paged if dev.type == "cuda" else _launch_meta
+    with cost.counted(lambda: cost.paged_attention(
+            G, Sq, D, cost.static_live(G, Sk), block_table.numel(),
+            kv_len.numel(), 0 if mask is None else mask.numel())):
+        return _padded_to_4(impl, 3)(*args, rsd=rsd)
 
 
 def acam_attention_decode_codes(q_codes, k_codes, v_codes, logit_scale, kv_len,

@@ -6,12 +6,16 @@ bias]`` elementwise, with ``bias`` moving two's-complement codes to table
 positions. The TPU function `_lut_kernel` becomes ``csrc/acam_lut.cu``; the
 plain PyTorch version is `acam_lut_plain`. The wrapper picks by the device
 of its input: a CUDA tensor launches the kernel or raises, a CPU tensor
-runs the plain version. Codes outside the table are clamped to it (they are
-outside the op's input format, so the reference never meets them).
+runs the plain version, a ``meta`` tensor gets the output's shape and its
+work is reported to an active op counter (`cost`). Codes outside the table
+are clamped to it (they are outside the op's input format, so the
+reference never meets them).
 """
 from __future__ import annotations
 
 import torch
+
+from . import cost
 
 __all__ = ["acam_lut_2d", "acam_lut", "acam_lut_plain", "launches",
            "DEFAULT_BLOCK_ROWS"]
@@ -65,11 +69,15 @@ def acam_lut_2d(x: torch.Tensor, lut: torch.Tensor, bias: int = 128,
         raise TypeError(f"codes must be int8 or int32, got {x.dtype}")
     if lut.ndim != 1:
         raise ValueError(f"lut must be 1-D, got {tuple(lut.shape)}")
-    if x.device.type == "cuda":
-        return _launch(x, lut, bias)
     if x.device.type == "cpu":
         return acam_lut_plain(x, lut, bias)
-    raise ValueError(f"no implementation for device {x.device}")
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"no implementation for device {x.device}")
+    with cost.counted(lambda: cost.lut(x.numel(), x.element_size(),
+                                       lut.numel())):
+        if x.device.type == "meta":  # shapes only: nothing is computed
+            return torch.empty(x.shape, dtype=torch.int32, device=x.device)
+        return _launch(x, lut, bias)
 
 
 def acam_lut(x: torch.Tensor, lut: torch.Tensor, bias: int = 128

@@ -6,7 +6,8 @@ The port of `repro.kernels.acam_mvm`: x (M, K) int8 times w (K, N) int8 ->
 ADC per tile and the offset corrections. The TPU function `_mvm_kernel`
 becomes ``csrc/acam_mvm.cu``; the plain PyTorch version is
 `acam_mvm_plain`. A CUDA tensor launches the kernel or raises, a CPU tensor
-runs the plain version.
+runs the plain version, a ``meta`` tensor gets the output's shape and its
+work is reported to an active op counter (`cost`).
 
 The ADC's step comes from ``cfg.rows`` while it is applied per ``bk``-row
 tile, as in the Pallas kernel: in quantize mode a call with ``bk !=
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from ..core.crossbar import CrossbarConfig, adc_step, sliced_matmul
+from . import cost
 
 __all__ = ["acam_mvm", "acam_mvm_plain", "launches", "MvmPlan", "mvm_plan",
            "mvm_operands", "MVM_TILES"]
@@ -164,16 +166,23 @@ def acam_mvm(x: torch.Tensor, w: torch.Tensor,
     if w.device != x.device:
         raise ValueError(f"w is on {w.device}, x on {x.device}")
     bk = bk or cfg.rows
-    if x.device.type == "cuda":
-        if x.dtype != torch.int8 or w.dtype != torch.int8:
-            raise TypeError(f"the CUDA kernel takes int8 codes, got "
-                            f"{x.dtype} x {w.dtype}")
-        if bk % 4 or not 4 <= bk <= 256 or cfg.input_bits > 8 \
-                or cfg.weight_bits > 8:
-            raise ValueError(f"the CUDA kernel takes bk a multiple of 4 up "
-                             f"to 256 and operands of at most 8 bits, got "
-                             f"bk={bk}, {cfg}")
-        return _launch(x, w, cfg, bk)
     if x.device.type == "cpu":
         return acam_mvm_plain(x, w, cfg, bk)
-    raise ValueError(f"no implementation for device {x.device}")
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"no implementation for device {x.device}")
+    if x.dtype != torch.int8 or w.dtype != torch.int8:
+        raise TypeError(f"the CUDA kernel takes int8 codes, got "
+                        f"{x.dtype} x {w.dtype}")
+    if bk % 4 or not 4 <= bk <= 256 or cfg.input_bits > 8 \
+            or cfg.weight_bits > 8:
+        raise ValueError(f"the CUDA kernel takes bk a multiple of 4 up "
+                         f"to 256 and operands of at most 8 bits, got "
+                         f"bk={bk}, {cfg}")
+    planes = (1 if adc_step(cfg, cfg.rows) is None
+              else cfg.num_input_slices * cfg.num_weight_slices)
+    with cost.counted(lambda: cost.mvm(x.shape[0], x.shape[1], w.shape[1],
+                                       planes)):
+        if x.device.type == "meta":  # shapes only: nothing is computed
+            return torch.empty((x.shape[0], w.shape[1]), dtype=torch.int32,
+                               device=x.device)
+        return _launch(x, w, cfg, bk)

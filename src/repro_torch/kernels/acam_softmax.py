@@ -5,7 +5,8 @@ row sum -> PoT encode -> log LUT -> subtract -> exp_prob LUT, from LOGIT
 (1-4-3) codes to PROB (0-0-8) codes. The TPU function `_softmax_kernel`
 becomes ``csrc/acam_softmax.cu``; the plain PyTorch version is
 `acam_softmax_codes_plain`. A CUDA tensor launches the kernel or raises, a
-CPU tensor runs the plain version.
+CPU tensor runs the plain version, a ``meta`` tensor gets the output's
+shape and its work is reported to an active op counter (`cost`).
 
 As in the reference, any ``mode`` other than ``"pot"`` takes the pot_fine
 tables, so ``"uniform"`` runs as ``"pot_fine"`` here (the staged
@@ -21,6 +22,7 @@ import torch
 from ..core import ops as acam_ops
 from ..core.ops import LOGIT_FMT
 from ..core.quant import pot_decode_runtime, pot_encode, ref_sum
+from . import cost
 from .acam_attention import pot_consts
 
 __all__ = ["acam_softmax_codes", "acam_softmax_kernel",
@@ -126,11 +128,16 @@ def acam_softmax_codes(x_codes: torch.Tensor, mode: str = "pot",
     if x_codes.numel() == 0:
         return torch.zeros(x_codes.shape, dtype=torch.int32,
                            device=x_codes.device)
-    if x_codes.device.type == "cuda":
-        return _launch(x_codes, mode)
     if x_codes.device.type == "cpu":
         return acam_softmax_codes_plain(x_codes, mode)
-    raise ValueError(f"no implementation for device {x_codes.device}")
+    if x_codes.device.type not in ("cuda", "meta"):
+        raise ValueError(f"no implementation for device {x_codes.device}")
+    with cost.counted(lambda: cost.softmax(x_codes.numel(),
+                                           x_codes.element_size())):
+        if x_codes.device.type == "meta":  # shapes only: nothing computed
+            return torch.empty(x_codes.shape, dtype=torch.int32,
+                               device=x_codes.device)
+        return _launch(x_codes, mode)
 
 
 def acam_softmax_kernel(x: torch.Tensor, mode: str = "pot") -> torch.Tensor:

@@ -59,3 +59,8 @@ def tiny_config(cfg):
     if cfg.is_encoder_decoder:
         kw.update(n_encoder_layers=2, encoder_len=12)
     return cfg.replace(**kw)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skipped where there is none")
