@@ -115,8 +115,9 @@ Phases, in order; any failure raises and the script exits non-zero:
             torch.profiler. Then: the kernels against their plain versions
             on a 6-layer pool (one period, every ring wrapping) and on a
             solo 1536-token prompt (the prefill past the ring and the band
-            over 1536 keys); the same float weights in digital mode, where
-            the first 2 requests' tokens in a pool of the first 8 (32 new)
+            over 1536 keys); the same float weights' first 6 layers (one
+            period) in digital mode, where the first 2 requests' tokens in
+            a pool of the first 8 (32 new)
             must be their solo `generate` tokens (phase 11's near-tie rule);
             raceit_q8 against solo runs on 2 requests, counted, not held.
 14. moe pool  mixtral-8x22b at its published width (d 6144, 48 heads and 8
@@ -212,8 +213,9 @@ Phases, in order; any failure raises and the script exits non-zero:
             within 1e-4 of the largest logit in digital mode, and moved by
             far more than that against text-only positions; raceit_q8
             reported.
-21. noise  gpt2-large at its published width (36 layers, d 1280, 20
-            heads, vocab 50257), resident int8 from a seed, served with
+21. noise  gpt2-large at its published width (d 1280, 20 heads, vocab
+            50257), resident int8 from a seed, its first 12 of 36 layers
+            (the script's time; the later checks take all 36), served with
             ExecConfig.serving(mode="raceit", noise=nominal, seed 1) by the
             paged batcher: 8 requests of 64..256 tokens, 16 new. The plan
             must put raceit_noisy_int, raceit_noisy_lut, raceit_noisy_acam
@@ -272,12 +274,11 @@ Phases, in order; any failure raises and the script exits non-zero:
             max|diff| <= 1e-4 max|g| + 1e-7). (b) gpt2-large at its
             published width, nothing cut, through `launch.train.train` at
             the launcher's defaults (8 x 256 tokens a step, float32, AdamW
-            with remat "dots"), 6 steps with its checkpoint under build/;
-            the checkpoint restored with `CheckpointManager.restore` equal
-            bit for bit to the state the run returned; a second run to
-            step 8 resumes from step 6; every loss finite, step 6's below
-            step 1's. Step ms (median after the first), tokens/s, peak
-            memory, checkpoint write and restore seconds and bytes, one
+            with remat "dots"), 6 steps with its checkpoint under build/
+            (25 (b) restores one of this size bit for bit, and (c) resumes
+            the loop); every loss finite, step 6's below step 1's. Step ms
+            (median after the first), tokens/s, peak memory, checkpoint
+            write seconds and bytes, one
             step split into forward, backward and optimizer (CUDA
             synchronised host clock), forward + backward and its peak
             memory under each remat policy (none, full, dots), and one
@@ -310,6 +311,22 @@ Phases, in order; any failure raises and the script exits non-zero:
             serving domain) equals the sources' own export
             (acam_attention_{paged,contiguous,single}_smem) and is at most
             the card's cudaDevAttrMaxSharedMemoryPerBlockOptin.
+25. mesh    parameters placed on a data=2,model=2 mesh, every position on
+            cuda:0. (a) Right after phase 22, phase 22's gpt2-large (36
+            layers, resident int8) with fsdp=True served by an engine on
+            that mesh (placed at load: every stripe a view, nothing
+            allocated) on phase 22's trace: tokens equal to phase 22's
+            no-mesh run, 2 x 2 x 2 x 36 paged launches a model call, stripe
+            bytes per position against the whole tree's, tokens/s and
+            decode and chunk ms beside the no-mesh run's. (b) After phase
+            24, gpt2-large at its published width with fsdp=True: 3 steps
+            through `launch.train.train` on the mesh (the batch split over
+            the two data replicas) against 3 no-mesh steps of the
+            launcher's weights, schedule and batches; losses within rtol
+            1e-6, params within a tenth of the summed learning rate; step
+            ms, peak memory and one step under torch.profiler (idle share)
+            of both; the mesh run's checkpoint restored without a mesh,
+            equal bit for bit. Its directory is deleted.
 
 Phase 9 also drives the float attention wrappers with the reference's
 default fold_scale=False at D 128 (the kernels divide by sqrt(d)), with
@@ -2511,10 +2528,13 @@ def phase_gemma3_pool(device_desc: str) -> dict:
           f"1536-token solo run: kernel {solo_k} != plain {solo_p.tolist()}")
     del eng, short
     torch.cuda.empty_cache()
-    # digital greedy on the same float weights: the pool's tokens are a
-    # solo run's while the pinned width is at most the window
-    deng = GenerationEngine(cfg, fparams, ExecConfig(mode="digital"),
-                            max_len=2048, device=DEVICE)
+    # digital greedy on the same float weights, the first 6 layers (one
+    # period; the script's time): the pool's tokens are a solo run's while
+    # the pinned width is at most the window
+    deng = GenerationEngine(cfg.replace(n_layers=6),
+                            dict(fparams, blocks=fparams["blocks"][:6]),
+                            ExecConfig(mode="digital"), max_len=2048,
+                            device=DEVICE)
     fresh = lambda: trace(cfg, n_requests=8, lo=128, hi=1024, n_new=32)
     cb_d, _ = pool(deng, fresh())
     res["digital_same_as_solo"] = solo_matches(deng, fresh()[:2], cb_d.done,
@@ -2522,7 +2542,7 @@ def phase_gemma3_pool(device_desc: str) -> dict:
     print(f"[gemma3] kernels equal to plain attention on a 6-layer pool ("
           f"{len(wrap)} requests of {[len(r.prompt) for r in wrap]} tokens "
           f"and 160 new, every ring wrapping) and on a 1536-token solo "
-          f"prompt; digital pool (8 requests, 32 new): "
+          f"prompt; digital pool (6 layers, 8 requests, 32 new): "
           f"{res['digital_same_as_solo']} of the first 2 requests equal to "
           f"their solo runs (the rest "
           f"part at a near tie); raceit_q8 pool: "
@@ -2993,39 +3013,44 @@ def tp_op_parity(device_desc: str) -> list:
     return rows
 
 
+def serve_timed(e, requests, tag: str) -> dict:
+    """Serve ``requests`` on ``e`` after a warm-up request, timed: its
+    tokens, tokens/s, mean decode and chunk ms, memory and launches."""
+    from repro_torch.kernels import acam_attention as A
+    serve(e, trace(e.cfg, n_requests=1, lo=64, hi=64, n_new=2))  # warm
+    base = torch.cuda.memory_allocated()  # weights, and what else is held
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    cb, secs, times, peak_pages = serve(e, requests, timed=True)
+    launches = dict(A.launches)
+    for r in requests:
+        done = cb.done[r.rid]
+        check(done.error is None and len(done.result) == r.n_new,
+              f"{tag} request {r.rid}: {done.error or len(done.result)}")
+    calls = cb.chunk_calls + cb.decode_steps
+    tokens = sum(len(cb.done[r.rid].result) for r in requests)
+    return dict(
+        tokens=tokens, seconds=secs, tokens_per_s=tokens / secs,
+        decode_steps=cb.decode_steps, chunk_calls=cb.chunk_calls,
+        decode_ms=1e3 * float(np.mean(times["decode"])),
+        chunk_ms=1e3 * float(np.mean(times["chunk"])),
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        serving_gib=(torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+        launches=launches, calls=calls, summary=cb.summary(),
+        results=tokens_of(cb))
+
+
 def tp_serving(eng, tp, requests, tag: str) -> dict:
     """Serve ``requests`` on ``eng`` (no mesh) and its TP twin ``tp``
     (the same weights), timed: tokens of both and the TP run's numbers."""
-    from repro_torch.kernels import acam_attention as A
-    out = {}
-    for label, e in (("single", eng), ("tp", tp)):
-        serve(e, trace(e.cfg, n_requests=1, lo=64, hi=64, n_new=2))  # warm
-        base = torch.cuda.memory_allocated()  # weights, and what else is held
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        cb, secs, times, peak_pages = serve(e, requests, timed=True)
-        launches = dict(A.launches)
-        for r in requests:
-            done = cb.done[r.rid]
-            check(done.error is None and len(done.result) == r.n_new,
-                  f"{tag} {label} request {r.rid}: "
-                  f"{done.error or len(done.result)}")
-        calls = cb.chunk_calls + cb.decode_steps
-        tokens = sum(len(cb.done[r.rid].result) for r in requests)
-        out[label] = dict(
-            tokens=tokens, seconds=secs, tokens_per_s=tokens / secs,
-            decode_steps=cb.decode_steps, chunk_calls=cb.chunk_calls,
-            decode_ms=1e3 * float(np.mean(times["decode"])),
-            chunk_ms=1e3 * float(np.mean(times["chunk"])),
-            peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-            serving_gib=(torch.cuda.max_memory_allocated() - base) / 2 ** 30,
-            launches=launches, calls=calls, summary=cb.summary(),
-            results=tokens_of(cb))
-    return out
+    return {label: serve_timed(e, requests, f"{tag} {label}")
+            for label, e in (("single", eng), ("tp", tp))}
 
 
-def phase_tp(device_desc: str, scout) -> dict:
-    """Phase 22: tensor and expert parallelism, every shard on cuda:0."""
+def phase_tp(device_desc: str, scout):
+    """Phase 22: tensor and expert parallelism, every shard on cuda:0.
+    Returns (results, the no-mesh gpt2-large engine and its run on the
+    trace: phase 25's reference)."""
     from repro_torch.configs.base import ExecConfig
     from repro_torch.models import moe as M
     t0 = time.perf_counter()
@@ -3040,7 +3065,8 @@ def phase_tp(device_desc: str, scout) -> dict:
           f"gpt2-large model=2 plan: {tp.plan.explain()}")
     requests = trace(eng.cfg, n_requests=4, lo=64, hi=256, n_new=16)
     g = tp_serving(eng, tp, requests, "gpt2-large")
-    del eng, tp
+    ref = (eng, requests, g["single"])  # phase 25's reference run
+    del tp
     torch.cuda.empty_cache()
     check(g["tp"]["results"] == g["single"]["results"],
           "gpt2-large model=2 tokens differ from no mesh")
@@ -3125,7 +3151,7 @@ def phase_tp(device_desc: str, scout) -> dict:
                 scout_agree=agree, routing=routing,
                 launches={"acam_attention_paged":
                           g["tp"]["launches"]["acam_attention_paged"]
-                          + sc["tp"]["launches"]["acam_attention_paged"]})
+                          + sc["tp"]["launches"]["acam_attention_paged"]}), ref
 
 
 # ----------------------------------------------------------- phase 16
@@ -3866,6 +3892,9 @@ def noise_card_and_cpu(eng) -> dict:
                 softmax_replayed=replayed)
 
 
+NOISE_LAYERS = 12  # of gpt2-large's 36, for the noisy and staged runs
+
+
 def phase_noise(device_desc: str) -> dict:
     """gpt2-large served through the noisy plan (nominal, seed 1) on the
     paged batcher; zero sigma against the clean staged plan; worst_case on
@@ -3878,9 +3907,11 @@ def phase_noise(device_desc: str) -> dict:
     cfg = base.cfg
     check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.vocab_size)
           == (36, 1280, 20, 50257), "gpt2-large is not at published width")
-    # (a) the noisy plan at full width: draws at first use, then cached
+    # (a) the noisy plan at full width, 12 of the 36 layers (the script's
+    # time): draws at first use, then cached
     eng = with_exec(base, ExecConfig.serving(
-        mode="raceit", noise=N.NoiseConfig.preset("nominal", seed=1)))
+        mode="raceit", noise=N.NoiseConfig.preset("nominal", seed=1)),
+        n_layers=NOISE_LAYERS)
     check(all(eng.plan.backend(s) == b for s, b in NOISY_PLAN.items()),
           "the noisy plan does not route every raceit slot to a noisy "
           "backend:\n" + eng.explain_plan())
@@ -3916,7 +3947,8 @@ def phase_noise(device_desc: str) -> dict:
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         draws=draws, launches=counts)
     staged = with_exec(base, ExecConfig.serving(mode="raceit",
-                                                fused_attention=False))
+                                                fused_attention=False),
+                       n_layers=NOISE_LAYERS)
     serve(staged, trace(cfg, n_requests=1, lo=64, hi=64, n_new=2))
     cbs, staged_s, staged_times, _ = serve(staged, requests(), timed=True)
     same = sum(int(np.sum(cbs.done[r].result == cb.done[r].result))
@@ -3926,7 +3958,8 @@ def phase_noise(device_desc: str) -> dict:
                          chunk_ms=1e3 * float(np.mean(staged_times["chunk"])),
                          same_tokens=same)
     s = res["noisy"]
-    print(f"[noise] gpt2-large {cfg.n_layers}L d{cfg.d_model} raceit_q8 "
+    print(f"[noise] gpt2-large {eng.cfg.n_layers} of {cfg.n_layers} layers "
+          f"d{cfg.d_model} raceit_q8 "
           f"nominal noise (seed 1), paged: {tokens} tokens in {secs:.2f} s "
           f"= {s['tokens_per_s']:.1f} tok/s; {cb.decode_steps} decode steps "
           f"(mean {s['decode_ms']:.1f} "
@@ -4126,7 +4159,8 @@ def split_step_ms(model, params, opt_state, batch, opt_cfg) -> dict:
 
 def train_full_width(device_desc: str) -> dict:
     """(b) gpt2-large at its published width through the launcher's
-    function: 6 steps, the checkpoint restored bit for bit, a resume to 8."""
+    function: 6 steps and their checkpoint (phase 25 (b) restores a
+    checkpoint of this size bit for bit; (c) resumes the loop)."""
     import shutil
     from repro_torch import tree
     from repro_torch.ckpt import CheckpointManager
@@ -4168,19 +4202,8 @@ def train_full_width(device_desc: str) -> dict:
         ckpt_dir = TRAIN_CKPT / "step-6"
         nbytes = sum(f.stat().st_size for f in ckpt_dir.iterdir())
         n_params = sum(x.numel() for x in tree.leaves(params))
-        # the checkpoint against the state the run returned, bit for bit
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        restored, extra = CheckpointManager(TRAIN_CKPT).restore(
-            (params, opt_state))
-        torch.cuda.synchronize()
-        restore_s = time.perf_counter() - t0
-        same = all(torch.equal(a, b) for a, b in zip(
-            tree.leaves(restored), tree.leaves((params, opt_state))))
-        check(same and extra == {"step": 6, "data_state": {"step": 6,
-                                                           "seed": 0}},
-              f"train (b): the restored checkpoint differs (extra {extra})")
-        del restored
+        steps_kept = CheckpointManager(TRAIN_CKPT).steps()
+        check(steps_kept == [6], f"train (b): checkpoints {steps_kept}")
         # one step by parts and one under torch.profiler, at the run's
         # state, on the launcher's configuration
         cfg = get_config("gpt2-large").replace(param_dtype="float32",
@@ -4213,35 +4236,18 @@ def train_full_width(device_desc: str) -> dict:
                            {k: 0 for k in KERNEL_NAMES}, top=10)
         del params, opt_state, step, one
         torch.cuda.empty_cache()
-        # a second run to step 8 resumes from step 6
-        t0 = time.perf_counter()
-        _, _, out8 = launch.train("gpt2-large", steps=8,
-                                  ckpt_dir=str(TRAIN_CKPT), device=DEVICE,
-                                  log=logs.append)
-        resume_s = time.perf_counter() - t0
-        losses8 = [r["loss"] for r in out8["history"]]
-        check(logs == ["[loop] resumed from step 6"]
-              and out8["final_step"] == 8 and len(losses8) == 2
-              and all(np.isfinite(losses8)),
-              f"train (b) resume: logs {logs}, step {out8['final_step']}, "
-              f"losses {losses8}")
-        steps_kept = CheckpointManager(TRAIN_CKPT).steps()
-        check(steps_kept == [6, 8], f"train (b): checkpoints {steps_kept}")
     finally:
         loop.CheckpointManager = real_manager
         shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
     write_s = [s for st, s, block in saves if st == 6 and block][0]
-    res = dict(params=n_params, losses=losses + losses8, step_ms=step_ms,
+    res = dict(params=n_params, losses=losses, step_ms=step_ms,
                step_ms_median=med, tokens_per_s=8 * 256 * 1e3 / med,
-               peak_mem_gib=peak, run_s=run_s, resume_run_s=resume_s,
-               ckpt_bytes=nbytes, ckpt_write_s=write_s,
-               ckpt_restore_s=restore_s, saves=saves, split=split,
-               remat=remat,
+               peak_mem_gib=peak, run_s=run_s, ckpt_bytes=nbytes,
+               ckpt_write_s=write_s, saves=saves, split=split, remat=remat,
                profile=prof, disk_free_gib=free / 2 ** 30)
     print(f"[train] (b) gpt2-large at its width ({n_params} params, 36 "
           f"layers, d 1280), 8 x 256 tokens a step: losses "
-          f"{', '.join(f'{x:.4f}' for x in losses)} then resumed "
-          f"{', '.join(f'{x:.4f}' for x in losses8)}; step "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; step "
           f"{med:.1f} ms median after the first (all: "
           f"{', '.join(f'{t:.1f}' for t in step_ms)}) = "
           f"{res['tokens_per_s']:.0f} tokens/s; peak memory {peak:.2f} GiB",
@@ -4254,9 +4260,8 @@ def train_full_width(device_desc: str) -> dict:
                                   f"{v['peak_gib']:.2f} GiB)"
                                   for k, v in remat.items()), flush=True)
     print(f"[train] (b) checkpoint of step 6: {nbytes} bytes, written in "
-          f"{write_s:.2f} s (host copy + npz), restored in "
-          f"{restore_s:.2f} s and equal bit for bit; the 6-step run "
-          f"{run_s:.1f} s, the resume to 8 {resume_s:.1f} s; "
+          f"{write_s:.2f} s (host copy + npz; phase 25 (b) restores one of "
+          f"this size bit for bit); the 6-step run {run_s:.1f} s; "
           f"{res['disk_free_gib']:.0f} GiB free before ({device_desc})",
           flush=True)
     return res
@@ -4621,6 +4626,254 @@ def phase_dryrun(device_desc: str) -> dict:
     return res
 
 
+# ----------------------------------------------------------- phase 25
+
+FSDP_MESH = "data=2,model=2"
+MESH_TRAIN_STEPS = 3
+# params of a mesh run against the no-mesh run's after the same steps:
+# within a tenth of the largest move AdamW can make in those steps (the
+# sum of the step's lr), tests/test_torch_mesh_train.py's rule
+MESH_PARAM_SHARE = 0.1
+
+
+def fsdp_mesh():
+    """The ``data=2,model=2`` spec, built with every position on cuda:0."""
+    from repro_torch.dist import MeshSpec
+    spec = MeshSpec.parse(FSDP_MESH)
+    return spec, spec.build(["cuda:0"] * spec.n_devices)
+
+
+def tree_bytes(t) -> int:
+    from repro_torch import tree
+    return sum(x.codes.nbytes + x.scale.nbytes if hasattr(x, "codes")
+               else x.numel() * x.element_size() for x in tree.leaves(t))
+
+
+def fsdp_serving(device_desc: str, ref) -> dict:
+    """25(a): phase 22's gpt2-large (36 layers, resident int8) with
+    ``fsdp=True`` under data=2,model=2, placed at load; its tokens against
+    phase 22's no-mesh run on the same trace and weights."""
+    from repro_torch.configs.base import ExecConfig
+    from repro_torch.dist import position_bytes
+    from repro_torch.serve import GenerationEngine
+    eng, requests, single = ref
+    spec, mesh = fsdp_mesh()
+    cfg = eng.cfg.replace(fsdp=True)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    fs = GenerationEngine(cfg, eng.params,
+                          ExecConfig.serving(mode="raceit", mesh=spec),
+                          max_len=eng.max_len, device=eng.device)
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    placed_bytes = torch.cuda.memory_allocated() - before
+    check(fs.plan.backend("attention_decode") == "raceit_fused_tp"
+          and fs.plan.backend("attention_prefill") == "raceit_fused_tp",
+          f"gpt2-large {FSDP_MESH} plan: {fs.plan.explain()}")
+    check(placed_bytes == 0, f"placing on one card allocated {placed_bytes} "
+          f"bytes (every stripe should be a view)")
+    whole = tree_bytes(eng.params)
+    stripes = position_bytes(fs.params, mesh)
+    r = serve_timed(fs, requests, f"gpt2-large fsdp {FSDP_MESH}")
+    del fs
+    check(r["results"] == single["results"],
+          f"gpt2-large fsdp {FSDP_MESH} tokens differ from no mesh")
+    per_call = 2 * 2 * 2 * cfg.n_layers  # passes x (probe, exact) x shards
+    lp = r["launches"]["acam_attention_paged"]
+    check(lp == per_call * r["calls"] and r["summary"]["mesh"] == FSDP_MESH,
+          f"gpt2-large fsdp {FSDP_MESH}: {lp} paged launches for "
+          f"{r['calls']} model calls")
+    print(f"[fsdp] (a) gpt2-large {cfg.n_layers}L d{cfg.d_model} raceit_q8 "
+          f"fsdp paged, {FSDP_MESH} on one card: placed in "
+          f"{1e3 * place_s:.1f} ms, {placed_bytes} bytes allocated; stripe "
+          f"bytes per position {stripes} of the whole tree's {whole}; "
+          f"{r['tokens']} tokens, {r['tokens_per_s']:.1f} tok/s (no mesh "
+          f"{single['tokens_per_s']:.1f}); decode step "
+          f"{r['decode_ms']:.1f} ms (no mesh {single['decode_ms']:.1f}), "
+          f"chunk {r['chunk_ms']:.1f} ms (no mesh {single['chunk_ms']:.1f});"
+          f" {per_call} paged launches a model call ({lp} over "
+          f"{r['calls']}); tokens equal to no mesh ({device_desc})",
+          flush=True)
+    out = {k: v for k, v in r.items() if k not in ("results", "summary")}
+    return dict(fsdp=out, single={k: v for k, v in single.items()
+                                  if k not in ("results", "summary")},
+                place_s=place_s, placed_bytes=placed_bytes,
+                stripe_bytes=stripes, whole_bytes=whole,
+                launches={"acam_attention_paged": lp})
+
+
+def mesh_training(device_desc: str) -> dict:
+    """25(b): gpt2-large at its width, ``fsdp`` on, 3 steps through
+    `launch.train.train` on data=2,model=2 against 3 no-mesh steps on the
+    same weights (seed 0) and batches; the mesh run's checkpoint restored
+    without a mesh, bit for bit, and resumed for one more step through
+    `launch.train` on the mesh (the launcher's auto-resume: the elastic
+    restore onto its placed state) against that step taken on the run's
+    own state."""
+    import shutil
+    from repro_torch import tree
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.dist import position_bytes, unplace
+    from repro_torch.launch import train as launch
+    from repro_torch.models import Model
+    from repro_torch.train import optim, trainer
+    spec, mesh = fsdp_mesh()
+    steps = MESH_TRAIN_STEPS
+    cfg = get_config("gpt2-large").replace(param_dtype="float32",
+                                           compute_dtype="float32",
+                                           fsdp=True)
+    opt_cfg = optim.AdamWConfig(lr=3e-4,
+                                schedule=optim.warmup_cosine(20, steps))
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=256,
+                       global_batch=8, seed=0)
+    batches = [{k: torch.as_tensor(v, device=DEVICE)
+                for k, v in data.next_batch().items()}
+               for _ in range(steps + 1)]  # the last: the resumed step's
+    none = lambda: None
+    quiet = {k: 0 for k in KERNEL_NAMES}
+    # no mesh: the launcher's weights, schedule and batches, step by step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()  # what earlier phases still hold
+    net = Model(cfg, device=DEVICE)
+    params = net.init(torch.Generator(device=DEVICE).manual_seed(0))
+    opt_state = optim.adamw_init(params)
+    step = trainer.make_train_step(net, opt_cfg)
+    torch.cuda.synchronize()
+    state = torch.cuda.memory_allocated() - start  # weights and moments
+    losses, step_ms = [], []
+    for b in batches[:steps]:
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, b)
+        losses.append(float(m["loss"]))
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    peak = (torch.cuda.max_memory_allocated() - start) / 2 ** 30
+    over = peak - state / 2 ** 30
+    prof = profile_run("one no-mesh gpt2-large train step (8 x 256)",
+                       lambda: step(params, opt_state, batches[steps - 1]),
+                       none, quiet, top=3)
+    del opt_state, step
+    torch.cuda.empty_cache()
+    # the mesh: through the launcher, onto every position of cuda:0
+    ckpt = TRAIN_CKPT.parent / "mesh_train_smoke"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    logs = []
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()  # the no-mesh weights, kept
+        t0 = time.perf_counter()
+        mp, mo, out = launch.train("gpt2-large", steps=steps, mesh=mesh,
+                                   ckpt_dir=str(ckpt), device=DEVICE,
+                                   overrides={"fsdp": True},
+                                   log=logs.append)
+        run_s = time.perf_counter() - t0
+        mpeak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        mover = mpeak - state / 2 ** 30  # over its weights and moments
+        mlosses = [r["loss"] for r in out["history"]]
+        mstep_ms = [1e3 * r["step_time_s"] for r in out["history"]]
+        check(out["final_step"] == steps and not logs,
+              f"mesh train: step {out['final_step']}, logs {logs}")
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(mlosses, losses))
+        lr_sum = sum(float(opt_cfg.lr * opt_cfg.schedule(torch.tensor(t)))
+                     for t in range(1, steps + 1))
+        whole_mp = unplace(mp, DEVICE)  # the bases: no copy on one card
+        gap = max(float((a - b).abs().max()) for a, b in zip(
+            tree.leaves(whole_mp), tree.leaves(params)))
+        stripes = position_bytes(mp, mesh)
+        whole = tree_bytes(whole_mp)
+        mstep = trainer.make_train_step(Model(cfg, device=DEVICE), opt_cfg,
+                                        mesh=mesh)
+        mprof = profile_run(f"one {FSDP_MESH} gpt2-large train step",
+                            lambda: mstep(mp, mo, batches[steps - 1]), none,
+                            quiet, top=3)
+        # step steps + 1 on the run's own state: what the resume must give
+        cp, _, cm = mstep(mp, mo, batches[steps])
+        cont_loss = float(cm["loss"])
+        del mstep, cm
+        # the mesh run's checkpoint, restored without a mesh
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored, extra = CheckpointManager(ckpt).restore(
+            (whole_mp, unplace(mo, DEVICE)))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree.leaves(restored), tree.leaves((whole_mp, unplace(mo,
+                                                                  DEVICE)))))
+        del restored
+        # the launcher resumes the mesh checkpoint onto its placed state
+        # and takes one more step
+        rlogs = []
+        t0 = time.perf_counter()
+        rp, _, rout = launch.train("gpt2-large", steps=steps + 1, mesh=mesh,
+                                   ckpt_dir=str(ckpt), device=DEVICE,
+                                   overrides={"fsdp": True},
+                                   log=rlogs.append)
+        resume_s = time.perf_counter() - t0
+        rloss = [r["loss"] for r in rout["history"]]
+        resume_gap = max(float((a - b).abs().max()) for a, b in zip(
+            tree.leaves(unplace(rp, DEVICE)), tree.leaves(unplace(cp,
+                                                                  DEVICE))))
+        resume_tol = MESH_PARAM_SHARE * float(
+            opt_cfg.lr * opt_cfg.schedule(torch.tensor(steps + 1)))
+        del rp, cp
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    check(loss_rel <= TRAIN_LOSS_RTOL,
+          f"mesh train: losses {mlosses} against no mesh {losses}")
+    check(gap <= MESH_PARAM_SHARE * lr_sum,
+          f"mesh train: params {gap} from no mesh's (tolerance "
+          f"{MESH_PARAM_SHARE * lr_sum})")
+    check(same and extra == {"step": steps,
+                             "data_state": {"step": steps, "seed": 0}},
+          f"mesh train: the checkpoint restored without a mesh differs "
+          f"(extra {extra})")
+    check(rout["final_step"] == steps + 1 and len(rloss) == 1
+          and rlogs == [f"[loop] resumed from step {steps}"],
+          f"mesh train resume: step {rout['final_step']}, losses {rloss}, "
+          f"logs {rlogs}")
+    check(abs(rloss[0] - cont_loss) <= TRAIN_LOSS_RTOL * abs(cont_loss)
+          and resume_gap <= resume_tol,
+          f"mesh train resume: loss {rloss[0]} against {cont_loss}, params "
+          f"{resume_gap} apart (tolerance {resume_tol})")
+    idle = lambda p: (f"{p['idle_share']:.3f}" if p.get("measured")
+                      else "not measured")
+    print(f"[fsdp] (b) gpt2-large at its width, fsdp, 8 x 256 tokens a "
+          f"step, {steps} steps: {FSDP_MESH} through launch.train losses "
+          f"{', '.join(f'{x:.6f}' for x in mlosses)}, no mesh "
+          f"{', '.join(f'{x:.6f}' for x in losses)} (worst rel "
+          f"{loss_rel:.2e}, tolerance {TRAIN_LOSS_RTOL}); params after "
+          f"step {steps} at most {gap:.3e} apart (tolerance "
+          f"{MESH_PARAM_SHARE * lr_sum:.3e}); step ms mesh "
+          f"{', '.join(f'{t:.1f}' for t in mstep_ms)}, no mesh "
+          f"{', '.join(f'{t:.1f}' for t in step_ms)}; peak GiB over "
+          f"what the run found held mesh {mpeak:.2f}, no mesh {peak:.2f} "
+          f"(over the weights and moments: {mover:.2f} and {over:.2f});"
+          f" idle share of one step mesh "
+          f"{idle(mprof)}, no mesh {idle(prof)}; stripe bytes per position "
+          f"{stripes} of the whole tree's {whole}; the mesh checkpoint "
+          f"restored without a mesh bit for bit in {restore_s:.2f} s (run "
+          f"with its save {run_s:.1f} s); launch.train resumed it on "
+          f"{FSDP_MESH} from step {steps} to {steps + 1}: loss "
+          f"{rloss[0]:.6f} against {cont_loss:.6f} on the run's own state, "
+          f"params {resume_gap:.3e} apart (tolerance {resume_tol:.3e}), "
+          f"{resume_s:.1f} s with its restore and save ({device_desc})",
+          flush=True)
+    return dict(losses=mlosses, losses_no_mesh=losses, loss_rel=loss_rel,
+                param_gap=gap, param_tol=MESH_PARAM_SHARE * lr_sum,
+                step_ms=mstep_ms, step_ms_no_mesh=step_ms, peak_gib=mpeak,
+                peak_gib_no_mesh=peak, over_state_gib=mover,
+                over_state_gib_no_mesh=over, profile=mprof, profile_no_mesh=prof,
+                stripe_bytes=stripes, whole_bytes=whole,
+                restore_s=restore_s, run_s=run_s, resume_loss=rloss[0],
+                continued_loss=cont_loss, resume_param_gap=resume_gap,
+                resume_s=resume_s)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
@@ -4694,10 +4947,14 @@ def main() -> None:
     lap("14 moe pool")
     moe_paged_res, scout = phase_moe_paged(desc)
     lap("15 moe paged")
-    tp_res = phase_tp(desc, scout)
+    tp_res, tp_ref = phase_tp(desc, scout)
     del scout
     torch.cuda.empty_cache()
     lap("22 tp")
+    fsdp_res = {"serving": fsdp_serving(desc, tp_ref)}
+    del tp_ref
+    torch.cuda.empty_cache()
+    lap("25a fsdp serving")
     ssm_res = phase_ssm_pool(desc)
     lap("16 ssm pool")
     hybrid_res = phase_hybrid_pool(desc)
@@ -4714,7 +4971,10 @@ def main() -> None:
     lap("23 train")
     dryrun_res = phase_dryrun(desc)
     lap("24 dryrun")
-    print(f"[time] phases 3 to 24: {time.perf_counter() - t_start:.1f} s; "
+    fsdp_res["training"] = mesh_training(desc)
+    torch.cuda.empty_cache()
+    lap("25b mesh train")
+    print(f"[time] phases 3 to 25: {time.perf_counter() - t_start:.1f} s; "
           + ", ".join(f"{k} {v:.1f} s" for k, v in laps.items()), flush=True)
 
     # each kernel's headline: its main-path decode shape in mode pot
@@ -4730,7 +4990,9 @@ def main() -> None:
                     + gqa_res["launches"]["acam_attention_paged"]
                     + moe_paged_res["launches"]["acam_attention_paged"]
                     + mrope_res["launches"]["acam_attention_paged"]
-                    + tp_res["launches"]["acam_attention_paged"]),
+                    + tp_res["launches"]["acam_attention_paged"]
+                    + fsdp_res["serving"]["launches"][
+                        "acam_attention_paged"]),
                 "acam_attention": (bucket_res["launches"]["acam_attention"]
                                    + solo_res["launches"]["acam_attention"]
                                    + pool_res["launches"]["acam_attention"]
@@ -4801,6 +5063,7 @@ def main() -> None:
                                     "tp": tp_res,
                                     "train": train_res,
                                     "dryrun": dryrun_res,
+                                    "fsdp": fsdp_res,
                                     "laps": laps,
                                     "smem_d320": smem_rows}),
           flush=True)

@@ -18,7 +18,11 @@ The port of `repro.ckpt.manager`, in its file format:
 * retention: the last ``keep`` checkpoints stay;
 * restore into a template's structure, each leaf on the template leaf's
   device, on one ``device``, or on a tree of devices shaped like the
-  template (a job restarted on another placement).
+  template (a job restarted on another placement);
+* placed trees (`repro_torch.dist.place_params`): a save writes each leaf
+  whole, so the format does not change; a restore re-places each leaf as
+  the template's placed leaf is placed: the reference's elastic restore,
+  a run saved on one mesh resumed on another.
 
 Either package reads the other's checkpoints.
 """
@@ -35,6 +39,7 @@ import numpy as np
 import torch
 
 from .. import tree
+from ..dist.sharding import Placed
 
 __all__ = ["CheckpointManager"]
 
@@ -52,6 +57,8 @@ def _path_name(path: tuple) -> str:
 def _host_copy(leaf) -> tuple[np.ndarray, str]:
     """(a numpy copy of ``leaf`` that later writes to it do not reach, its
     dtype name)."""
+    if isinstance(leaf, Placed):  # whole where it is, one copy to host
+        leaf = leaf.gather(leaf.devices[0])
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype in _VIEWS:
@@ -150,7 +157,7 @@ class CheckpointManager:
         ``device``: None puts each leaf where the template's leaf is (the
         CPU for a leaf that is no tensor); one device puts every leaf
         there; a tree of devices shaped like the template places leaf by
-        leaf.
+        leaf. A placed template leaf is placed as it is, onto its mesh.
         """
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -174,7 +181,9 @@ class CheckpointManager:
             for (path, tmpl), dev in zip(flat, devices):
                 name = _path_name(path)
                 t = _from_saved(z[name], dtypes.get(name))
-                if isinstance(tmpl, torch.Tensor) and t.dtype != tmpl.dtype:
+                if isinstance(tmpl, (torch.Tensor, Placed)) \
+                        and t.dtype != tmpl.dtype:
                     t = t.to(tmpl.dtype)
-                out.append(t.to(dev))
+                out.append(tmpl.like(t) if isinstance(tmpl, Placed)
+                           else t.to(dev))
         return tree.unflatten(template, out), meta["extra"]

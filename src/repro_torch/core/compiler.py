@@ -22,7 +22,7 @@ from .gray import gray_decode, gray_encode
 from .quant import FixedPointFormat
 
 __all__ = ["RangeProgram", "Rect", "RectProgram", "ArrayCost",
-           "build_table_2var", "compile_1var", "compile_2var",
+           "build_table_1var", "build_table_2var", "compile_1var", "compile_2var",
            "eval_range_program", "eval_rect_program", "array_cost",
            "ACAM_ARRAY_ROWS", "ACAM_ARRAY_COLS", "ACAM_ARRAYS_PER_GROUP"]
 
@@ -30,6 +30,17 @@ __all__ = ["RangeProgram", "Rect", "RectProgram", "ArrayCost",
 ACAM_ARRAY_ROWS = 4
 ACAM_ARRAY_COLS = 8
 ACAM_ARRAYS_PER_GROUP = 16
+
+
+def build_table_1var(
+    fn: Callable[[np.ndarray], np.ndarray],
+    in_fmt: FixedPointFormat,
+    out_fmt: FixedPointFormat,
+) -> np.ndarray:
+    """Out-codes (unsigned bit patterns) for each value-ordered input."""
+    x = in_fmt.decode(in_fmt.all_codes_value_order())
+    y = np.asarray(fn(x), dtype=np.float64)
+    return out_fmt.to_bits(out_fmt.encode(y))
 
 
 def build_table_2var(

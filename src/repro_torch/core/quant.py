@@ -44,6 +44,7 @@ __all__ = [
     "quantize_tensor", "recip_scale", "ref_log", "ref_log2", "ref_exp",
     "ref_sum", "sum_chunks", "pot_encode", "pot_decode_f32",
     "pot_decode_runtime", "runtime_pot_values", "scale_product",
+    "dequantize_tensor", "fake_quant",
 ]
 
 _F32 = np.float32
@@ -474,3 +475,27 @@ def quantize_tensor(x: torch.Tensor, bits: int = 8, axis=None) -> QuantizedTenso
     dtype = torch.int8 if bits <= 8 else torch.int32
     return QuantizedTensor(codes.to(dtype), scale.float(), bits,
                            torch.clamp_min(amax, float(_F32(1e-12))).float())
+
+
+def dequantize_tensor(q: QuantizedTensor) -> torch.Tensor:
+    """codes as float32 times the scale."""
+    return q.codes.float() * q.scale
+
+
+class _FakeQuant(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, bits, axis):
+        y = dequantize_tensor(quantize_tensor(x.detach(), bits=bits,
+                                              axis=axis))
+        return x + (y - x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+def fake_quant(x: torch.Tensor, bits: int = 8, axis=None) -> torch.Tensor:
+    """Quantize-dequantize with a straight-through gradient (the QAT
+    helper): the value ``x + (q(x) - x)`` of the reference's jitted graph,
+    the gradient the identity."""
+    return _FakeQuant.apply(x, bits, axis)

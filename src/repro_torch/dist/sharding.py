@@ -24,20 +24,37 @@ collectives written out as explicit stages over a list of shards
   parameter tree (one dict per layer): a spec is a tuple with one entry per
   dimension (None: replicated).
 
+- `place_params`, the placement of a parameter tree on a mesh (the
+  reference's ``jax.device_put`` under `named_sharding_tree`): each leaf
+  becomes a `Placed` leaf, its stripes on the devices of the mesh
+  positions that hold them, and `gather` / `gather_tree` bring a leaf or a
+  subtree whole onto one device (differentiably: ``.to`` and
+  ``torch.cat``), `unplace` a whole tree for a checkpoint.
+
 Only the ``model`` axis shards attention; replicas along ``data`` compute
-the same thing, so the port runs one replica set and ``data`` only splits
-the MoE batch, as the reference's ``batch_spec`` does.
+the same thing, so the port serves one replica set and ``data`` only splits
+the MoE batch, as the reference's ``batch_spec`` does. Training splits the
+batch over the ``data`` (and ``pod``) replicas (`replica_devices`).
+
+There is no ``torch.distributed`` job behind a mesh: one process drives
+every position, so there is no process group, DTensor or FSDP wrapper. A
+stripe is a tensor on its position's device; a gather is ``.to`` and
+``torch.cat`` in that process.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
 import numpy as np
 import torch
 
-__all__ = ["Mesh", "MeshContext", "MeshSpec", "ShardingPolicy",
-           "param_specs"]
+__all__ = ["Mesh", "MeshContext", "MeshSpec", "Placed", "ShardingPolicy",
+           "gather", "gather_tree", "is_placed", "param_specs", "partwise",
+           "place_model_params", "place_params", "placement_policy",
+           "position_bytes", "replica_devices", "roots", "sum_copies",
+           "unplace", "with_roots"]
 
 _DP_AXES = ("pod", "data")
 
@@ -342,3 +359,435 @@ def param_specs(params, cfg, policy: ShardingPolicy):
         shape = tuple(node.shape)
         return policy.spec_for(shape, _leaf_axes(name, shape))
     return walk(params, None)
+
+
+def placement_policy(mesh, cfg) -> ShardingPolicy:
+    """The policy a parameter tree is placed under: the default axis map,
+    and when ``cfg.fsdp`` the present ``pod``/``data`` axes appended to
+    ``heads``, ``mlp`` and ``vocab`` (the reference engine's FSDP rule), so
+    a weight too large for one device stripes over the data replicas too."""
+    policy = ShardingPolicy(mesh)
+    if cfg.fsdp:
+        dp = tuple(a for a in _DP_AXES if a in mesh.axis_names)
+        for name in ("heads", "mlp", "vocab"):
+            policy.axis_map[name] = tuple(policy.axis_map.get(name, ())) + dp
+    return policy
+
+
+# --------------------------------------------------------------------------
+# placement: the parameter tree in stripes over the mesh's devices
+# --------------------------------------------------------------------------
+
+def _entry_axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _norm_device(device) -> torch.device:
+    """``cuda`` without an index means the current card, as a tensor's
+    ``.device`` names it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+class Placed:
+    """One leaf of a parameter tree in stripes over a mesh.
+
+    ``spec`` has one entry per dimension (`param_specs`); dimension ``d``
+    is cut into ``splits[d]`` equal chunks, the product of its mesh axes'
+    sizes (the first axis of an entry the major one), and shard ``sid``
+    is the row-major index of a chunk on every dimension. A mesh position
+    holds the shard of its coordinates; the axes a spec does not name
+    replicate it.
+
+    The leaf is stored in ``parts``, one ``(device, sid, tensor)`` per
+    holder: the positions are grouped by device (by position under
+    `_distinct_positions`), and a holder that needs every shard keeps the whole
+    leaf (``sid`` None) with its stripes views into that one storage, so
+    on one card the placed leaf is the very tensor it was made from. A
+    holder that needs some shards keeps each as a tensor of its own. A
+    leaf that is not a tensor (a resident `QuantizedWeight`) replicates:
+    one whole part per holder.
+    """
+
+    def __init__(self, mesh, spec, shape, parts):
+        self.mesh = mesh
+        self.spec = spec
+        self.shape = shape
+        self.parts = parts
+        self.splits = tuple(
+            int(np.prod([mesh.shape[a] for a in _entry_axes(e)],
+                        dtype=np.int64)) for e in spec)
+        self.n_shards = int(np.prod(self.splits, dtype=np.int64))
+
+    # ---------------------------------------------------------- layout
+    def _chunk_index(self, sid: int) -> tuple:
+        return tuple(int(i) for i in np.unravel_index(sid, self.splits)) \
+            if self.splits else ()
+
+    def _chunk(self, whole, sid: int):
+        """Shard ``sid`` of the whole leaf ``whole``: a view."""
+        if self.n_shards == 1:
+            return whole
+        for d, (i, n) in enumerate(zip(self._chunk_index(sid),
+                                       self.splits)):
+            if n > 1:
+                size = whole.shape[d] // n
+                whole = whole.narrow(d, i * size, size)
+        return whole
+
+    def position_sid(self, position: tuple) -> int:
+        """The shard a mesh position (one index per mesh axis) holds."""
+        coord = dict(zip(self.mesh.axis_names, position))
+        index = []
+        for e in self.spec:
+            i = 0
+            for a in _entry_axes(e):
+                i = i * int(self.mesh.shape[a]) + int(coord[a])
+            index.append(i)
+        return int(np.ravel_multi_index(index, self.splits)) \
+            if self.splits else 0
+
+    @property
+    def dtype(self):
+        return self.parts[0][2].dtype
+
+    @property
+    def devices(self) -> list:
+        return [d for d, _, _ in self.parts]
+
+    # --------------------------------------------------------- reading
+    def shard(self, sid: int, device=None):
+        """Shard ``sid``, from a holder on ``device`` when there is one."""
+        device = None if device is None else _norm_device(device)
+        first = None
+        for dev, psid, t in self.parts:
+            if psid is None or psid == sid:
+                if dev == device:
+                    return t if psid is not None else self._chunk(t, sid)
+                if first is None:
+                    first = t if psid is not None else self._chunk(t, sid)
+        return first
+
+    def stripe(self, position: tuple):
+        """The stripe a mesh position holds (a view where its holder keeps
+        the whole leaf)."""
+        return self.shard(self.position_sid(position),
+                          self.mesh.devices[tuple(position)])
+
+    def gather(self, device):
+        """The whole leaf on ``device``: the holder's own tensor where it
+        keeps the whole leaf there, else the shards moved (``.to``) and
+        concatenated. Differentiable: autograd sends each gradient back to
+        the part it was read from."""
+        device = _norm_device(device)
+        for dev, psid, t in self.parts:
+            if psid is None and dev == device:
+                return t
+        if self.n_shards == 1:
+            return self.shard(0, device).to(device)
+        return self._assemble(device, lambda sid: self.shard(sid, device),
+                              [range(n) for n in self.splits])
+
+    def gather_slice(self, device, dim: int, lo: int, hi: int):
+        """``gather(device)`` narrowed to ``[lo, hi)`` along ``dim``, read
+        from the shards that overlap it only: a stripe that is that slice
+        is returned as it is (moved to ``device``)."""
+        device = _norm_device(device)
+        dim = dim % len(self.shape)
+        for dev, psid, t in self.parts:
+            if psid is None and dev == device:
+                return t.narrow(dim, lo, hi - lo)
+        size = self.shape[dim] // self.splits[dim]
+        ranges = [range(n) for n in self.splits]
+        ranges[dim] = range(lo // size, -(-hi // size))
+
+        def piece(sid):
+            t = self.shard(sid, device)
+            start = self._chunk_index(sid)[dim] * size
+            a, b = max(lo, start), min(hi, start + size)
+            return t if (a, b) == (start, start + size) \
+                else t.narrow(dim, a - start, b - a)
+        return self._assemble(device, piece, ranges)
+
+    def _assemble(self, device, piece, ranges):
+        def build(prefix):
+            d = len(prefix)
+            if d == len(ranges):
+                sid = int(np.ravel_multi_index(prefix, self.splits))
+                return piece(sid).to(device)
+            subs = [build(prefix + (i,)) for i in ranges[d]]
+            return subs[0] if len(subs) == 1 else torch.cat(subs, d)
+        return build(())
+
+    # -------------------------------------------------- roots (training)
+    def roots(self) -> list:
+        """The stored tensors, one a part: what autograd and the optimizer
+        see."""
+        return [t for _, _, t in self.parts]
+
+    def with_roots(self, tensors) -> "Placed":
+        """The same layout holding ``tensors`` (one a part)."""
+        return Placed(self.mesh, self.spec, self.shape,
+                      [(d, s, t) for (d, s, _), t in zip(self.parts, tensors)])
+
+    def map_roots(self, fn, *others) -> "Placed":
+        """``fn`` part by part over this leaf and ``others`` (leaves of the
+        same layout): the optimizer's moments live where their stripe
+        does."""
+        rest = [o.roots() for o in others]
+        return self.with_roots([fn(t, *(r[i] for r in rest))
+                                for i, t in enumerate(self.roots())])
+
+    def unique_roots(self) -> list:
+        """Tensors that hold every shard once: a whole part, else the first
+        copy of each shard (a norm counts a replicated leaf once)."""
+        for _, psid, t in self.parts:
+            if psid is None:
+                return [t]
+        seen, out = set(), []
+        for _, psid, t in self.parts:
+            if psid not in seen:
+                seen.add(psid)
+                out.append(t)
+        return out
+
+    def sum_copies(self) -> "Placed":
+        """Of a gradient leaf: every copy of a shard given the sum over
+        its copies (the data replicas' all-reduce). With one holder a
+        shard there is nothing to sum and the leaf comes back as it is."""
+        contrib = {sid: [] for sid in range(self.n_shards)}
+        for _, psid, t in self.parts:
+            if psid is None:
+                for sid in contrib:
+                    contrib[sid].append(self._chunk(t, sid))
+            else:
+                contrib[psid].append(t)
+        if all(len(c) == 1 for c in contrib.values()):
+            return self
+        total = {}
+        for sid, ts in contrib.items():
+            acc = ts[0]
+            for t in ts[1:]:
+                acc = acc + t.to(acc.device)
+            total[sid] = acc
+        new = []
+        for dev, psid, _ in self.parts:
+            if psid is None:
+                new.append(self._assemble(dev, total.__getitem__,
+                                          [range(n) for n in self.splits]))
+            else:
+                new.append(total[psid].to(dev))
+        return self.with_roots(new)
+
+    def _filled(self, whole, layout) -> "Placed":
+        """``whole`` in ``layout``'s ``(device, sid)`` holders: a whole
+        part moved as it is, a shard copied into a tensor of its own."""
+        return Placed(self.mesh, self.spec, self.shape, [
+            (dev, sid, whole.to(dev) if sid is None else self._chunk(
+                whole, sid).to(device=dev, copy=True,
+                               memory_format=torch.contiguous_format))
+            for dev, sid in layout])
+
+    def like(self, whole) -> "Placed":
+        """``whole`` placed as this leaf is, holder for holder (the
+        elastic restore)."""
+        return self._filled(whole, [(d, s) for d, s, _ in self.parts])
+
+    def stripe_nbytes(self, position: tuple) -> int:
+        s = self.stripe(position)
+        if hasattr(s, "codes"):
+            return s.codes.nbytes + s.scale.nbytes
+        return s.numel() * s.element_size()
+
+    def __repr__(self):
+        return (f"Placed(shape={tuple(self.shape)}, spec={self.spec}, "
+                f"parts={[(str(d), s) for d, s, _ in self.parts]})")
+
+
+def partwise(fn):
+    """``fn`` over a leaf (and the matching leaves of other trees), or
+    part by part over a placed leaf: for `tree.map` over placed trees."""
+    def apply(leaf, *rest):
+        if isinstance(leaf, Placed):
+            return leaf.map_roots(fn, *rest)
+        return fn(leaf, *rest)
+    return apply
+
+
+_DISTINCT = False
+
+
+@contextlib.contextmanager
+def _distinct_positions():
+    """Within it, placing keeps every position's stripes apart even where
+    positions share a device: the layout distinct cards get, built on one
+    device (the tests read it on the CPU)."""
+    global _DISTINCT
+    before, _DISTINCT = _DISTINCT, True
+    try:
+        yield
+    finally:
+        _DISTINCT = before
+
+
+def place_leaf(x, spec, mesh) -> Placed:
+    """``x`` (a tensor, or a resident weight: replicated) in stripes
+    under ``spec`` over ``mesh``; see `Placed`."""
+    if isinstance(x, Placed):
+        x = x.gather(x.devices[0])
+    quantized = hasattr(x, "codes")
+    shape = tuple(x.codes.shape) if quantized else tuple(x.shape)
+    if quantized or spec is None:
+        spec = (None,) * (0 if quantized else len(shape))
+    probe = Placed(mesh, spec, shape, [])
+    holders: dict = {}
+    for flat, position in enumerate(np.ndindex(*mesh.devices.shape)):
+        dev = _norm_device(mesh.devices[position])
+        holders.setdefault(flat if _DISTINCT else dev, (dev, set()))[1].add(
+            probe.position_sid(position))
+    layout = []
+    for dev, sids in holders.values():
+        layout += [(dev, None)] if len(sids) == probe.n_shards \
+            else [(dev, sid) for sid in sorted(sids)]
+    return probe._filled(x, layout)
+
+
+def place_params(params, specs, mesh):
+    """``params`` with each leaf placed under its spec (`param_specs`'
+    tree) over ``mesh``: the counterpart of ``jax.device_put(params,
+    named_sharding_tree(specs, mesh))``."""
+    if isinstance(params, dict):
+        return {k: place_params(v, specs[k], mesh) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(place_params(v, s, mesh)
+                            for v, s in zip(params, specs))
+    if params is None:
+        return None
+    return place_leaf(params, None if hasattr(params, "codes") else specs,
+                      mesh)
+
+
+def place_model_params(params, cfg, mesh):
+    """``params`` placed under `param_specs` with `placement_policy`."""
+    specs = param_specs(params, cfg, placement_policy(mesh, cfg))
+    return place_params(params, specs, mesh)
+
+
+def gather(leaf, device):
+    """A leaf whole on ``device``: `Placed.gather`, or ``leaf.to``."""
+    if isinstance(leaf, Placed):
+        return leaf.gather(device)
+    return leaf.to(device)
+
+
+def gather_tree(node, device, skip: tuple = ()):
+    """``node`` with every `Placed` leaf gathered whole onto ``device``;
+    other leaves, and the subtrees under a key in ``skip``, as they are."""
+    if isinstance(node, Placed):
+        return node.gather(device)
+    if isinstance(node, dict):
+        return {k: (v if k in skip else gather_tree(v, device, skip))
+                for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(gather_tree(v, device, skip) for v in node)
+    return node
+
+
+def unplace(tree_, device="cpu"):
+    """A placed tree whole on ``device`` (tensors moved there too)."""
+    if isinstance(tree_, dict):
+        return {k: unplace(v, device) for k, v in tree_.items()}
+    if isinstance(tree_, (list, tuple)):
+        return type(tree_)(unplace(v, device) for v in tree_)
+    if tree_ is None:
+        return None
+    return gather(tree_, device)
+
+
+def is_placed(node) -> bool:
+    """Whether ``node`` holds a `Placed` leaf."""
+    if isinstance(node, Placed):
+        return True
+    if isinstance(node, dict):
+        return any(is_placed(v) for v in node.values())
+    if isinstance(node, (list, tuple)):
+        return any(is_placed(v) for v in node)
+    return False
+
+
+def _leaves(node) -> list:
+    if isinstance(node, dict):
+        return [x for k in sorted(node) for x in _leaves(node[k])]
+    if isinstance(node, (list, tuple)):
+        return [x for v in node for x in _leaves(v)]
+    return [] if node is None else [node]
+
+
+def roots(tree_) -> list:
+    """The stored tensors of a tree in leaf order: a `Placed` leaf's
+    parts, a plain leaf itself."""
+    out = []
+    for leaf in _leaves(tree_):
+        out.extend(leaf.roots() if isinstance(leaf, Placed) else [leaf])
+    return out
+
+
+def with_roots(tree_, tensors: list):
+    """``tree_`` holding ``tensors`` (in `roots` order)."""
+    it = iter(tensors)
+
+    def take(leaf):
+        if isinstance(leaf, Placed):
+            return leaf.with_roots([next(it) for _ in leaf.parts])
+        return next(it)
+
+    def build(node):
+        if isinstance(node, dict):
+            new = {k: build(node[k]) for k in sorted(node)}
+            return {k: new[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v) for v in node)
+        return None if node is None else take(node)
+    out = build(tree_)
+    if next(it, None) is not None:
+        raise ValueError("more tensors than the tree's roots")
+    return out
+
+
+def sum_copies(grads):
+    """A gradient tree with each `Placed` leaf's copies summed
+    (`Placed.sum_copies`)."""
+    if isinstance(grads, Placed):
+        return grads.sum_copies()
+    if isinstance(grads, dict):
+        return {k: sum_copies(v) for k, v in grads.items()}
+    if isinstance(grads, (list, tuple)):
+        return type(grads)(sum_copies(v) for v in grads)
+    return grads
+
+
+def replica_devices(mesh) -> list:
+    """The compute device of each data replica, over the ``pod`` and
+    ``data`` axes in mesh order: its position with every other axis
+    (``model``) at 0."""
+    names = mesh.axis_names
+    dp = [names.index(a) for a in _DP_AXES if a in names]
+    out = []
+    for idx in np.ndindex(*[mesh.devices.shape[i] for i in dp]):
+        position = [0] * len(names)
+        for i, v in zip(dp, idx):
+            position[i] = v
+        out.append(_norm_device(mesh.devices[tuple(position)]))
+    return out
+
+
+def position_bytes(tree_, mesh) -> list:
+    """Bytes of the stripes each mesh position holds (row-major over the
+    mesh): what each of distinct cards would hold."""
+    leaves = [x for x in _leaves(tree_) if isinstance(x, Placed)]
+    return [sum(x.stripe_nbytes(position) for x in leaves)
+            for position in np.ndindex(*mesh.devices.shape)]

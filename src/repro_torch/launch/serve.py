@@ -12,8 +12,10 @@ the model has no paged cache form); ``--staged-attention`` serves the
 stage-by-stage oracle attention instead of the fused kernels;
 ``--noise PRESET|SIGMA`` (and ``--noise-seed``) serves on device-varied
 arrays through the ``raceit_noisy_*`` backends; ``--mesh`` (``4``,
-``model=4``, ``data=2,model=4``) shards attention heads and the KV cache
-over the ``raceit_*_tp`` backends and the MoE FFNs over the mesh, one
+``model=4``, ``data=2,model=4``) places the weights on the mesh (FSDP
+stripes over the data axes too when the config sets ``fsdp``) and shards
+attention heads and the KV cache over the ``raceit_*_tp`` backends and
+the MoE FFNs over the mesh, one
 process driving every shard (``--device cpu`` puts every shard on the
 CPU; on the card a mesh takes ``cuda:0 .. n-1`` and stops when the
 process has fewer cards). An
@@ -113,8 +115,10 @@ def main(argv=None):
                          "'data=2,model=4' (repro_torch.dist.MeshSpec "
                          "syntax). A 'model' axis shards attention heads "
                          "and the KV cache over the raceit_*_tp backends "
-                         "and the MoE FFNs over the mesh; on --device cpu "
-                         "every shard runs on the CPU")
+                         "and the MoE FFNs over the mesh; params load "
+                         "under FSDP specs when the config sets fsdp=True "
+                         "(the data axes stripe the weights too). On "
+                         "--device cpu every shard runs on the CPU")
     ap.add_argument("--set", nargs="*", default=[])
     args = ap.parse_args(argv)
 

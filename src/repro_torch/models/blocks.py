@@ -27,6 +27,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..configs.base import ExecConfig, ModelConfig
+from ..dist.sharding import gather_tree, is_placed
 from ..exec.plan import ExecPlan, as_plan
 from ..exec.plan import layer_plan as _mixer_plan
 from . import layers, moe as moe_mod, ssm
@@ -211,6 +212,13 @@ def _remat_wrap(fn, cfg: ModelConfig):
     return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
 
 
+def _gathered_layer(p: Params, x: torch.Tensor, **kw):
+    """`apply_layer` on a placed layer: its leaves gathered whole onto
+    ``x``'s device first (a ``moe`` subtree is left placed: `moe.moe`
+    reads the stripes its shards own)."""
+    return apply_layer(gather_tree(p, x.device, skip=("moe",)), x, **kw)
+
+
 def apply_stack(params: list, x: torch.Tensor, *, cfg: ModelConfig,
                 plan: ExecPlan | ExecConfig, positions: torch.Tensor,
                 caches: Optional[list], pad_lens: Optional[torch.Tensor] = None,
@@ -229,12 +237,14 @@ def apply_stack(params: list, x: torch.Tensor, *, cfg: ModelConfig,
     (k, v) over the encoder output. ``use_remat`` checkpoints each layer
     as ``cfg.remat`` says (`_remat_wrap`) when autograd records (a cache-free
     call with grad enabled); serving under ``torch.no_grad()`` is unchanged.
+    A placed stack is gathered layer by layer (`_gathered_layer`).
     """
     plan = as_plan(cfg, plan)
     new_caches = [] if caches is not None else None
-    layer_fn = apply_layer
+    layer_fn = (_gathered_layer if params and is_placed(params[0])
+                else apply_layer)
     if use_remat and caches is None and torch.is_grad_enabled():
-        layer_fn = _remat_wrap(apply_layer, cfg)
+        layer_fn = _remat_wrap(layer_fn, cfg)
     for i, p in enumerate(params):
         mixer, ffn_kind = cfg.layer_spec(i)
         x, nc = layer_fn(p, x, cfg=cfg, plan=plan, mixer=mixer,

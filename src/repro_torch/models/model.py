@@ -28,6 +28,10 @@ An encoder-decoder's cache is ``{"dec": [layer caches], "enc_kv": [(k, v)
 per decoder layer]}``: `prefill` with ``enc_feats`` fills ``enc_kv`` from
 the encoder; without them the decoder attends to the zeros `init_cache`
 made, as in the reference.
+
+``params`` may be placed on a mesh (`repro_torch.dist.place_params`): each
+entry point gathers the embeddings and norms onto the model's device, and
+the layer stacks are gathered a layer at a time (`blocks.apply_stack`).
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ import torch
 
 from .. import resolve_device
 from ..configs.base import ExecConfig, ModelConfig
+from ..dist.sharding import Placed, gather_tree, is_placed
 from ..exec.plan import ExecPlan, as_plan
 from . import blocks, layers
 
@@ -45,6 +50,8 @@ Params = dict
 # weight leaves that live on crossbars as int8 conductance codes when serving
 _QUANTIZABLE = {"wq", "wk", "wv", "wo", "w1", "w2", "w3", "unembed",
                 "w_z", "w_x", "w_B", "w_C", "w_dt", "out_proj"}
+
+_STACKS = ("blocks", "encoder", "decoder")  # gathered a layer at a time
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -56,9 +63,13 @@ def quantize_model_params(params: Params) -> Params:
     The reference runs this eagerly, so its ``/ 127.0`` is a true division
     (a jitted graph would multiply by the reciprocal); ``wo`` contracts over
     (heads, head_dim). A ``moe`` subtree (router and experts) stays float:
-    the same tensor objects come back, as in the reference.
+    the same tensor objects come back, as in the reference. A placed
+    leaf is gathered and quantized whole (a resident weight replicates);
+    the leaves left float keep their placement.
     """
     def q2d(leaf, name):
+        if isinstance(leaf, Placed):  # quantized whole: codes replicate
+            leaf = leaf.gather(leaf.devices[0])
         arr = leaf.float()
         if name == "wo":
             arr = arr.reshape(-1, arr.shape[-1])
@@ -71,7 +82,8 @@ def quantize_model_params(params: Params) -> Params:
     def walk(tree):
         if isinstance(tree, dict):
             return {name: (q2d(leaf, name) if name in _QUANTIZABLE
-                           and isinstance(leaf, torch.Tensor) and leaf.ndim >= 2
+                           and isinstance(leaf, (torch.Tensor, Placed))
+                           and len(leaf.shape) >= 2
                            else leaf if name == "moe"
                            else walk(leaf)) for name, leaf in tree.items()}
         if isinstance(tree, (list, tuple)):
@@ -89,7 +101,10 @@ def encoder_config(cfg: ModelConfig) -> ModelConfig:
 
 
 def params_to(params, device):
-    """Move a parameter tree (tensors and resident weights) to ``device``."""
+    """Move a parameter tree (tensors and resident weights) to ``device``;
+    a placed leaf comes whole onto it."""
+    if isinstance(params, Placed):
+        return params.gather(device)
     if isinstance(params, dict):
         return {k: params_to(v, device) for k, v in params.items()}
     if isinstance(params, (list, tuple)):
@@ -178,6 +193,15 @@ class Model:
                                        dtype or self.compute_dtype,
                                        page_size, n_pages)
 
+    def _local(self, params: Params) -> Params:
+        """``params`` with every entry but the layer stacks gathered onto
+        this model's device when the tree is placed (embeddings, norms,
+        the lm head); a tree that is not placed comes back as it is."""
+        if not is_placed(params.get("embed")):
+            return params
+        return {k: (v if k in _STACKS else gather_tree(v, self.device))
+                for k, v in params.items()}
+
     def _positions(self, tokens: torch.Tensor, offset=0) -> torch.Tensor:
         b, s = tokens.shape[:2]
         pos = torch.arange(s, dtype=torch.int32, device=tokens.device) + offset
@@ -199,8 +223,9 @@ class Model:
         through the plan's matmul slot, with biases."""
         proj = lambda c, w, b: layers._linear(enc_out, c[w], self.plan,
                                               c.get(b))
-        return [(proj(lp["cross"], "wk", "bk"), proj(lp["cross"], "wv", "bv"))
-                for lp in params["decoder"]]
+        cross = [gather_tree(lp["cross"], enc_out.device)
+                 for lp in params["decoder"]]
+        return [(proj(c, "wk", "bk"), proj(c, "wv", "bv")) for c in cross]
 
     def _trunk(self, params, tokens, positions, cache, pad_lens=None,
                pad_prompt_len=None, slot_lens=None, block_table=None,
@@ -242,6 +267,7 @@ class Model:
         ``use_remat`` checkpoints a decoder-only stack's layers when
         autograd records (`blocks.apply_stack`), as the reference's does;
         the numbers do not change."""
+        params = self._local(params)
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         positions = batch.get("positions")
         positions = (self._positions(tokens) if positions is None
@@ -260,6 +286,13 @@ class Model:
         the gold logit, in float32. A decoder predicts token t + 1 from
         position t; an encoder-only model predicts each token at its own
         position."""
+        nll, count = self.loss_sums(params, batch, use_remat=use_remat)
+        return nll / torch.clamp_min(count, 1.0)
+
+    def loss_sums(self, params: Params, batch: dict,
+                  use_remat: bool = True):
+        """(the sum of `loss_fn`'s masked token losses, the count of kept
+        tokens), float32: a data replica's part of a mesh step's mean."""
         logits = self.forward(params, batch, use_remat=use_remat)
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         if self.cfg.causal:
@@ -278,7 +311,7 @@ class Model:
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.take_along_dim(logits, targets[..., None], dim=-1)[..., 0]
         nll = (logz - gold) * mask
-        return nll.sum() / torch.clamp_min(mask.sum(), 1.0)
+        return nll.sum(), mask.sum()
 
     def prefill(self, params: Params, tokens: torch.Tensor, cache,
                 enc_feats=None, positions=None, pad_lens=None):
@@ -292,6 +325,7 @@ class Model:
         encoder-decoder given ``enc_feats`` runs the encoder and fills the
         cache's cross keys and values, cast to the cache's dtype.
         """
+        params = self._local(params)
         if positions is None:
             positions = self._positions(tokens)
             if pad_lens is not None:
@@ -320,6 +354,7 @@ class Model:
         token decoded this step (0 = an empty slot, a dead row);
         ``block_table``/``page_size`` address a block-paged slot cache.
         """
+        params = self._local(params)
         if slot_lens is not None:
             lens = slot_lens.to(torch.int32)
             positions = torch.clamp(lens - 1, min=0)[:, None].expand(
@@ -356,6 +391,7 @@ class Model:
         logical columns [chunk_offs[b], chunk_offs[b] + chunk_lens[b]).
         Returns (logits (B, 1, V) at each row's last fed position, cache).
         """
+        params = self._local(params)
         offs = chunk_offs.to(torch.int32)
         feed = chunk_lens.to(torch.int32)
         positions = offs[:, None] + torch.arange(

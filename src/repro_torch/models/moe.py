@@ -41,6 +41,13 @@ reference's `shard_map` body on every shard, its collectives written out:
 
 Inside a shard the raceit activation and router softmax see the shard's
 tensors only, as the reference's body does.
+
+Expert weights placed on the mesh (`repro_torch.dist.place_params`: w1/w3
+striped on d_ff, w2 on its rows, over ``model`` and under FSDP ``data``
+too) are gathered whole for the one-device body. The TP-in-expert body
+reads the d_ff block each shard owns from the stripes that hold it (the
+very stripe without FSDP), and the EP body each owner's experts from
+every d_ff stripe, never the whole weight.
 """
 from __future__ import annotations
 
@@ -49,6 +56,7 @@ from typing import NamedTuple
 import torch
 
 from ..configs.base import ExecConfig, ModelConfig
+from ..dist.sharding import Placed, gather, gather_tree
 from ..exec.plan import ExecPlan, as_plan
 from . import layers
 
@@ -166,6 +174,16 @@ def _moe_local(p: Params, x: torch.Tensor, cfg: ModelConfig,
     return _combine(y_e, r, B * S).reshape(B, S, D)
 
 
+def _part(w, dim: int, lo: int, hi: int, device):
+    """``w[lo:hi]`` along ``dim`` on ``device`` (None stays None); a placed
+    weight is read from the stripes that hold that block."""
+    if w is None:
+        return None
+    if isinstance(w, Placed):
+        return w.gather_slice(device, dim, lo, hi)
+    return w.narrow(dim, lo, hi - lo).to(device)
+
+
 def _moe_tp(p: Params, x: torch.Tensor, cfg: ModelConfig, plan: ExecPlan,
             devices: list) -> torch.Tensor:
     """TP-in-expert: shard m holds d_ff columns ``[m*F/ms, (m+1)*F/ms)``
@@ -173,13 +191,13 @@ def _moe_tp(p: Params, x: torch.Tensor, cfg: ModelConfig, plan: ExecPlan,
     B, S, D = x.shape
     ms = len(devices)
     F = p["w1"].shape[-1] // ms
-    cols = lambda w, m: None if w is None else w[..., m * F:(m + 1) * F]
     y = None
     for m, dev in enumerate(devices):
-        w = {k: (None if v is None else v.to(dev))
-             for k, v in (("router", p["router"]), ("w1", cols(p["w1"], m)),
-                          ("w2", p["w2"][:, m * F:(m + 1) * F]),
-                          ("w3", cols(p.get("w3"), m)))}
+        lo, hi = m * F, (m + 1) * F
+        w = {"router": gather(p["router"], dev),
+             "w1": _part(p["w1"], 2, lo, hi, dev),
+             "w2": _part(p["w2"], 1, lo, hi, dev),
+             "w3": _part(p.get("w3"), 2, lo, hi, dev)}
         r, disp = _dispatch(w, x.to(dev).reshape(B * S, D), cfg, plan)
         y_m = _combine(_experts(disp, w["w1"], w["w2"], w["w3"], cfg, plan),
                        r, B * S).to(x.device)
@@ -198,7 +216,7 @@ def _moe_ep(p: Params, x: torch.Tensor, cfg: ModelConfig, plan: ExecPlan,
     seq = S % ms == 0
     xs = ([c.to(d) for c, d in zip(x.chunk(ms, 1), devices)] if seq
           else [x.to(d) for d in devices])
-    routed = [_dispatch({"router": p["router"].to(d)},
+    routed = [_dispatch({"router": gather(p["router"], d)},
                         xm.reshape(-1, D), cfg, plan)
               for xm, d in zip(xs, devices)]
     C = routed[0][0].C
@@ -208,7 +226,7 @@ def _moe_ep(p: Params, x: torch.Tensor, cfg: ModelConfig, plan: ExecPlan,
     for j, dev in enumerate(devices):
         blocks = torch.cat([disp[j * El:(j + 1) * El].to(dev)
                             for _, disp in routed], dim=1)
-        ex = lambda w: None if w is None else w[j * El:(j + 1) * El].to(dev)
+        ex = lambda w: _part(w, 0, j * El, (j + 1) * El, dev)
         ys.append(_experts(blocks, ex(p["w1"]), ex(p["w2"]), ex(p.get("w3")),
                            cfg, plan))
     # the return all_to_all: shard m takes its C rows from every owner
@@ -229,11 +247,12 @@ def moe(p: Params, x: torch.Tensor, cfg: ModelConfig,
     plan = as_plan(cfg, plan)
     spec = plan.exec_cfg.mesh
     if spec is None or spec.n_devices <= 1:
-        return _moe_local(p, x, cfg, plan)
+        return _moe_local(gather_tree(p, x.device), x, cfg, plan)
     ctx = spec.context(kind=x.device.type)
     devices = ctx.model_devices()
     if len(devices) == 1:
-        body = lambda xb: _moe_local(p, xb, cfg, plan)
+        whole = gather_tree(p, x.device)
+        body = lambda xb: _moe_local(whole, xb, cfg, plan)
     elif cfg.expert_parallel:
         body = lambda xb: _moe_ep(p, xb, cfg, plan, devices)
     else:

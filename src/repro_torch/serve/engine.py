@@ -12,11 +12,16 @@ in place.
 With ``ExecConfig.mesh`` naming more than one device, the engine builds
 the mesh once for its device kind, so a CUDA mesh larger than the
 process's cards raises here (a mesh built earlier onto an explicit device
-list is reused). Attention shards through the plan's ``raceit_*_tp``
-backends and the MoE FFNs through `models.moe`, each reading the same
-``ExecConfig.mesh``. The weights stay on the engine's device: placing
-them in stripes over distinct cards (the reference's FSDP at load) is not
-ported.
+list is reused), and places the parameter tree on it under `param_specs`
+(the reference's ``device_put`` at load): Megatron stripes over
+``model``, and with ``ModelConfig.fsdp`` the ``pod``/``data`` axes handed
+to the ``heads``, ``mlp`` and ``vocab`` stripes too, so a tree too large
+for one card loads in stripes (`repro_torch.dist.place_model_params`).
+Resident int8 weights replicate. The model gathers each layer onto its
+device as it runs it; attention shards through the plan's
+``raceit_*_tp`` backends and the MoE FFNs through `models.moe`, each
+reading the same ``ExecConfig.mesh``. Where every position is one card,
+a placed leaf is the tensor it was made from, and its stripes views of it.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import torch
 
 from .. import resolve_device
 from ..configs.base import ExecConfig, ModelConfig
+from ..dist.sharding import place_model_params
 from ..models import Model
 from ..models.model import params_to
 
@@ -46,12 +52,16 @@ class GenerationEngine:
     def __post_init__(self):
         self.device = resolve_device(self.device)
         spec = self.exec_cfg.mesh
+        self.mesh = None
         if spec is not None and spec.n_devices > 1:
-            spec.build(kind=self.device.type)
+            self.mesh = spec.build(kind=self.device.type)
         self.model = Model(self.cfg, self.exec_cfg, device=self.device)
         self.plan = self.model.plan  # resolved operator dispatch table
         if self.params is not None:
-            self.params = params_to(self.params, self.device)
+            self.params = (params_to(self.params, self.device)
+                           if self.mesh is None else
+                           place_model_params(self.params, self.cfg,
+                                              self.mesh))
 
     def explain_plan(self) -> str:
         """The resolved slot -> backend table this engine serves with."""

@@ -53,7 +53,8 @@ def run_training(train_step: Callable, params, opt_state, data_iter,
     Returns (params, opt_state, {"history", "stragglers", "final_step"}).
     ``data_iter`` exposes ``next_batch()`` and, to be checkpointed,
     ``state()``/``set_state()`` (see `repro_torch.data.SyntheticLM`).
-    Restored leaves land where the given ``params``/``opt_state`` live.
+    Restored leaves land where the given ``params``/``opt_state`` live:
+    placed on a mesh, a checkpoint of any mesh resumes onto theirs.
     """
     mgr = CheckpointManager(cfg.ckpt_dir, keep=cfg.keep)
     start_step = 0

@@ -11,6 +11,13 @@ parameter dtype. The update keeps the reference's op order, not
   dimensions only;
 * the update ``-lr * u``, ``lr`` a float32 product (JAX's weak typing: a
   Python float meeting a float32 tensor is cast to float32).
+
+Over a tree placed on a mesh (`repro_torch.dist.place_params`) every
+function works part by part: a stripe's moments live on the stripe's
+device (ZeRO when ``fsdp`` stripes the weights over ``data``; a replicated
+leaf's moments replicate with it, as the reference's state inherits its
+parameters' sharding), and `global_norm` sums the squares of each leaf's
+shards once onto the first leaf's device.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import tree
+from ..dist.sharding import Placed, partwise
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "apply_updates",
            "global_norm", "clip_by_global_norm", "warmup_cosine"]
@@ -58,27 +66,38 @@ def warmup_cosine(warmup: int, total: int, min_ratio: float = 0.1):
     return fn
 
 
+def _first_device(params) -> torch.device:
+    leaf = tree.leaves(params)[0]
+    return leaf.devices[0] if isinstance(leaf, Placed) else leaf.device
+
+
 def adamw_init(params) -> dict:
-    """``{"mu", "nu"}`` float32 zeros shaped like ``params`` and an int32
-    ``step`` of 0, on the parameters' device."""
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
-    device = tree.leaves(params)[0].device
+    """``{"mu", "nu"}`` float32 zeros shaped like ``params`` (placed as
+    it is) and an int32 ``step`` of 0, on the first leaf's device."""
+    zeros = partwise(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                            device=p.device))
     return {"mu": tree.map(zeros, params), "nu": tree.map(zeros, params),
-            "step": torch.zeros((), dtype=torch.int32, device=device)}
+            "step": torch.zeros((), dtype=torch.int32,
+                                device=_first_device(params))}
 
 
 def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum of every leaf's float32 sum of squares."""
-    sums = [torch.sum(torch.square(g.float())) for g in tree.leaves(grads)]
-    return torch.sqrt(torch.sum(torch.stack(sums)))
+    """sqrt of the sum of every leaf's float32 sum of squares (a placed
+    leaf's shards counted once each, summed on the first leaf's device)."""
+    sums = [torch.sum(torch.square(g.float()))
+            for leaf in tree.leaves(grads)
+            for g in (leaf.unique_roots() if isinstance(leaf, Placed)
+                      else [leaf])]
+    device = sums[0].device
+    return torch.sqrt(torch.sum(torch.stack([s.to(device) for s in sums])))
 
 
 def clip_by_global_norm(grads, max_norm: float):
     """(grads scaled by min(1, max_norm / max(norm, 1e-9)), norm)."""
     norm = global_norm(grads)
     scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-9), 1.0)
-    return tree.map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
+    return tree.map(partwise(lambda g: (g.float() * scale.to(g.device)
+                                         ).to(g.dtype)), grads), norm
 
 
 @torch.no_grad()
@@ -95,24 +114,27 @@ def adamw_update(grads, state: dict, params, cfg: AdamWConfig):
     c1 = 1 - b1 ** t
     c2 = 1 - b2 ** t
 
-    def upd(g, m, v, p):
-        g = g.float()
-        m = b1 * m + (1 - b1) * g
-        v = b2 * v + (1 - b2) * g * g
-        u = (m / c1) / (torch.sqrt(v / c2) + cfg.eps)
+    on = lambda x, d: x.to(d) if isinstance(x, torch.Tensor) else x
+
+    mu = tree.map(partwise(lambda g, m: b1 * m + (1 - b1) * g.float()),
+                  grads, state["mu"])
+    nu = tree.map(partwise(lambda g, v: b2 * v + (1 - b2) * g.float()
+                           * g.float()), grads, state["nu"])
+
+    def upd(m, v, p):
+        d = m.device
+        u = (m / on(c1, d)) / (torch.sqrt(v / on(c2, d)) + cfg.eps)
         if p.ndim >= 2:  # decoupled weight decay on matrices only
             u = u + cfg.weight_decay * p.float()
-        return (-lr * u).to(p.dtype), m, v
+        return (-on(lr, d) * u).to(p.dtype)
 
-    flat = zip(tree.leaves(grads), tree.leaves(state["mu"]),
-               tree.leaves(state["nu"]), tree.leaves(params))
-    out = [upd(g, m, v, p) for g, m, v, p in flat]
-    pick = lambda i: tree.unflatten(grads, [o[i] for o in out])
+    updates = tree.map(partwise(upd), mu, nu, params)
     lr = torch.as_tensor(lr, dtype=torch.float32, device=step.device)
-    return pick(0), {"mu": pick(1), "nu": pick(2), "step": step}, {
+    return updates, {"mu": mu, "nu": nu, "step": step}, {
         "grad_norm": gnorm, "lr": lr}
 
 
 @torch.no_grad()
 def apply_updates(params, updates):
-    return tree.map(lambda p, u: p + u.to(p.dtype), params, updates)
+    return tree.map(partwise(lambda p, u: p + u.to(p.dtype)), params,
+                    updates)

@@ -1,11 +1,22 @@
 """Shared helpers of the port's parity tests (JAX reference vs repro_torch).
 
 Data crosses between the two packages as numpy arrays only.
+
+Every port test file imports this module, which sets torch to one
+intra-op thread in the process: the tests run small tensors, and under
+pytest-xdist several worker processes share the cores, so torch's
+default of a thread per core in each worker oversubscribes the CPU (the
+port's tests took 1040 s under ``-n 6`` with the default and 477 s with
+one thread a worker, on an 8-core machine). No result depends on it: the
+port's tests pass either way.
 """
 import dataclasses
 
 import jax
 import numpy as np
+import torch
+
+torch.set_num_threads(1)
 
 import repro_torch.configs.base as port_base
 from repro_torch.ckpt import params_from_numpy

@@ -105,3 +105,53 @@ def moe_inputs(case_index, B, S, D, E, F, glu):
     if glu:
         p["w3"] = f(E, E, D, F)
     return (z + shared) * scale, p
+
+
+# -------------------------------------------------------- FSDP serving
+
+FSDP_MESH = "data=2,model=2"
+FSDP_MODELS = ("gpt2-large", "command-r-35b", "mixtral-8x22b")
+FSDP_MAX_LEN = 64
+FSDP_SEEDS = (0, 1)
+
+
+def fsdp_prompts():
+    """`generate`'s prompts: (2, 12) int32."""
+    return np.random.default_rng(11).integers(0, 256, (2, 12)).astype(
+        np.int32)
+
+
+def fsdp_batcher_kw(paged):
+    """The batcher of a trace: paged pages of 8 (the reference soak's), or
+    the contiguous slot pool where the model has no paged form."""
+    return (dict(n_slots=3, page_size=8, n_pages=13) if paged
+            else dict(n_slots=3, prefill_len=24))
+
+
+def fsdp_trace(seed, vocab_size):
+    """A mixed-length trace, ``[(rid, prompt, n_new)]``: the reference
+    soak's (tests/_sharded_parity_child.py)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for rid in range(int(rng.integers(3, 6))):
+        L = int(rng.integers(1, 24))
+        prompt = np.random.default_rng(1000 + L).integers(
+            0, vocab_size, size=L).tolist()
+        out.append((rid, prompt, int(rng.integers(1, 5))))
+    return out
+
+
+def drive_trace(cb, requests, make_request):
+    """Submit ``requests`` to either framework's `ContinuousBatcher` and
+    step it dry, the page pool's invariants held after every step; the
+    tokens by request id."""
+    for rid, prompt, n_new in requests:
+        cb.submit(make_request(rid, prompt, n_new=n_new))
+    steps = 0
+    while cb.queue or any(s is not None for s in cb.slots):
+        cb.step()
+        steps += 1
+        assert steps < 500, "trace failed to drain"
+        if cb.paged:
+            cb.allocator.assert_invariants()
+    return {rid: [int(t) for t in r.result] for rid, r in cb.done.items()}

@@ -4,6 +4,7 @@ tests/test_torch_sharded.py and tests/test_torch_sharded_serving.py).
 
     python tests/_torch_sharded_child.py ops OUT.npz
     python tests/_torch_sharded_child.py moe OUT.npz
+    python tests/_torch_sharded_child.py fsdp OUT.npz
 
 It runs under ``XLA_FLAGS=--xla_force_host_platform_device_count=8``: the
 parent pytest process pins JAX to one CPU device (tests/conftest.py), and
@@ -28,6 +29,13 @@ TP-in-expert at model=2, tiny llama4-scout with EP at model 2 and 4, a
 decode step (S=1) and a 16-token prefill, digital and raceit, at capacity
 factor 1.25 (choices drop). Each shard's routing (expert ids, gates,
 kept choices, dispatch slots) is captured the same way.
+
+``fsdp``: the reference's `GenerationEngine` serving on a data=2,model=2
+mesh, its tree placed under `param_specs` with the FSDP axis map: tiny
+gpt2-large and command-r-35b (``fsdp`` set) and tiny mixtral-8x22b, from
+``Model.init(PRNGKey(0))``, resident int8 (``raceit``). Greedy tokens of
+`generate` and of mixed-length `ContinuousBatcher` traces (paged where
+the model pages).
 
 The inputs are tests/_torch_sharded_cases.py's (numpy seeds); the npz
 holds the outputs and records under ``<case>/<name>`` keys. Prints
@@ -54,10 +62,12 @@ from repro.exec.plan import resolve_plan  # noqa: E402
 from repro.kernels import ops as kops  # noqa: E402
 from repro.models import moe as RM  # noqa: E402
 
-from _torch_sharded_cases import (DATAFLOWS, MOE_CASES, MOE_CF,  # noqa: E402
-                                  MOE_MODES, OPS_CONFIGS, OPS_MESHES,
-                                  config_kw, moe_inputs, ops_call,
-                                  ops_inputs)
+from _torch_sharded_cases import (DATAFLOWS, FSDP_MAX_LEN,  # noqa: E402
+                                  FSDP_MESH, FSDP_MODELS, FSDP_SEEDS,
+                                  MOE_CASES, MOE_CF, MOE_MODES, OPS_CONFIGS,
+                                  OPS_MESHES, config_kw, drive_trace,
+                                  fsdp_batcher_kw, fsdp_prompts, fsdp_trace,
+                                  moe_inputs, ops_call, ops_inputs)
 
 
 class Recorder:
@@ -216,11 +226,41 @@ def run_moe(out):
             print(f"  {case}: {len(rec.records)} shard records", flush=True)
 
 
+def fsdp_config(name):
+    from conftest import tiny_config
+    return tiny_config(get_config(name)).replace(fsdp=True)
+
+
+def run_fsdp(out):
+    from repro.models import Model
+    from repro.models.model import quantize_model_params
+    from repro.serve import ContinuousBatcher, GenerationEngine, Request
+    for name in FSDP_MODELS:
+        cfg = fsdp_config(name)
+        params = quantize_model_params(Model(cfg).init(jax.random.PRNGKey(0)))
+        eng = GenerationEngine(cfg, params, exec_cfg=ExecConfig.serving(
+            mode="raceit", mesh=MeshSpec.parse(FSDP_MESH)),
+            max_len=FSDP_MAX_LEN)
+        leaf = eng.params["embed"]["tok_emb"]
+        assert len(leaf.sharding.device_set) == 4, leaf.sharding
+        out[f"{name}/generate"] = np.asarray(
+            eng.generate(jnp.asarray(fsdp_prompts()), n_new=6))
+        paged = ContinuousBatcher.pageable_reason(eng) is None
+        out[f"{name}/paged"] = np.asarray(paged)
+        for seed in FSDP_SEEDS:
+            cb = ContinuousBatcher(eng, paged=paged, **fsdp_batcher_kw(paged))
+            got = drive_trace(cb, fsdp_trace(seed, cfg.vocab_size), Request)
+            for rid, toks in got.items():
+                out[f"{name}/trace{seed}/{rid}"] = np.asarray(toks, np.int32)
+        print(f"  {name}: decode {eng.plan.backend('attention_decode')}, "
+              f"paged {paged}", flush=True)
+
+
 def main():
     mode, path = sys.argv[1], sys.argv[2]
     assert len(jax.devices()) == 8, jax.devices()
     out = {}
-    {"ops": run_ops, "moe": run_moe}[mode](out)
+    {"ops": run_ops, "moe": run_moe, "fsdp": run_fsdp}[mode](out)
     np.savez(path, **out)
     print("CHILD_OK")
 

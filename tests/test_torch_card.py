@@ -7,10 +7,15 @@ where there is no nvcc either).
   plan checks meet over a serving domain cut to 128 keys, each within the
   card's opt-in shared memory a block. `chip_smoke.py` phase 24 (c) runs
   the full domain.
+* The training launcher on the card: a ``--data`` x ``--model`` mesh of
+  more positions than the process has cards stops with `MeshSpec.build`'s
+  error before any weight is made (it never repeats a card unasked).
 """
 import pytest
 
 torch = pytest.importorskip("torch")
+
+import _torch_helpers  # noqa: E402,F401  (one torch thread a worker)
 
 pytestmark = [
     pytest.mark.cuda,
@@ -46,3 +51,14 @@ def test_smem_mirror_equals_the_sources_exports():
         got = exports[name](*args)
         assert got == nbytes, (name, args)
         assert got <= optin, (name, args)
+
+
+def test_train_mesh_larger_than_the_cards_raises(monkeypatch, tmp_path):
+    from repro_torch.dist import sharding
+    from repro_torch.launch.train import train
+    monkeypatch.setattr(sharding, "_BUILT_MESHES", {})  # this test's own
+    data = torch.cuda.device_count() + 1
+    with pytest.raises(RuntimeError, match=f"needs {2 * data} devices but "
+                       f"the process has {data - 1} CUDA device"):
+        train("gpt2-large", data=data, model=2, ckpt_dir=str(tmp_path))
+    assert not any(tmp_path.iterdir())

@@ -10,6 +10,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import _torch_helpers  # noqa: E402,F401  (one torch thread a worker)
+
 from repro.dist.compress import ef_compress_update as r_ef  # noqa: E402
 from repro_torch.dist import ef_compress_update as t_ef  # noqa: E402
 from repro_torch import tree  # noqa: E402

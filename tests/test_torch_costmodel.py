@@ -17,6 +17,8 @@ import pytest
 
 pytest.importorskip("torch")
 
+import _torch_helpers  # noqa: E402,F401  (one torch thread a worker)
+
 from repro.configs import get_config as r_get_config  # noqa: E402
 from repro.hw import area as RA  # noqa: E402
 from repro.hw import gce as RG  # noqa: E402

@@ -6,6 +6,8 @@ import pytest
 
 pytest.importorskip("torch")
 
+import _torch_helpers  # noqa: E402,F401  (one torch thread a worker)
+
 from repro.data import SyntheticLM as RSyn  # noqa: E402
 from repro_torch.data import SyntheticLM as TSyn  # noqa: E402
 

@@ -26,6 +26,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import _torch_helpers  # noqa: E402,F401  (one torch thread a worker)
+
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.acam_attention import (  # noqa: E402

@@ -16,6 +16,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import _torch_helpers  # noqa: E402,F401  (one torch thread a worker)
+
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import crossbar as RC  # noqa: E402

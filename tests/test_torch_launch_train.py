@@ -1,7 +1,9 @@
 """The port's training launcher, `python -m repro_torch.launch.train`, in a
-child process on the CPU: a 6-step run, then a second that resumes from its
-checkpoint to step 8; ``--model 2`` is refused; the child never imports
-`jax` or `repro`."""
+child process on the CPU: a 6-step run, then a second on a ``--data 2
+--model 2`` mesh (every position on the CPU) that resumes from its
+checkpoint to step 8; a ``--data`` that does not divide the batch is
+refused before anything is made; the child never imports `jax` or
+`repro`."""
 import os
 import subprocess
 import sys
@@ -10,6 +12,8 @@ from pathlib import Path
 import pytest
 
 torch = pytest.importorskip("torch")
+
+import _torch_helpers  # noqa: E402,F401  (one torch thread a worker)
 
 from repro_torch.launch import parse_overrides  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
@@ -29,7 +33,8 @@ CHILD = ("import runpy, sys\n"
 
 
 def _launch(*args):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # one torch thread, as the test process runs (tests/_torch_helpers.py)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     return subprocess.run([sys.executable, "-c", CHILD, *args], cwd=ROOT,
                           env=env, capture_output=True, text=True,
                           timeout=300)
@@ -42,15 +47,18 @@ def test_launcher_runs_resumes_and_refuses_model_parallel(tmp_path):
     assert "[train] olmo-1b: step 6 loss " in first.stdout
     assert "resumed" not in first.stdout
     assert "MODULES []" in first.stdout
-    second = _launch(*ARGS, "--steps", "8", "--ckpt-dir", ckpt)
+    second = _launch(*ARGS, "--steps", "8", "--ckpt-dir", ckpt, "--data",
+                     "2", "--model", "2")
     assert second.returncode == 0, second.stderr
     assert "[loop] resumed from step 6" in second.stdout
     assert "[train] olmo-1b: step 8 loss " in second.stdout
+    assert "MODULES []" in second.stdout
     assert sorted(os.listdir(ckpt)) == ["step-6", "step-8"]
-    refused = _launch(*ARGS, "--steps", "2", "--model", "2", "--ckpt-dir",
+    refused = _launch(*ARGS, "--steps", "2", "--data", "3", "--ckpt-dir",
                       str(tmp_path / "refused"))
     assert refused.returncode != 0
-    assert "ROADMAP.md item 11" in refused.stderr
+    assert "a batch of 8 rows does not split over 3 data replicas" in \
+        refused.stderr
     assert not (tmp_path / "refused").exists()
 
 
@@ -67,5 +75,5 @@ def test_train_function_and_overrides(tmp_path):
         device="cpu", log=lambda *a: None)
     assert out["final_step"] == 3 and int(opt_state["step"]) == 3
     assert params["blocks"][0]["attn"]["wq"].shape == (32, 2, 16)
-    with pytest.raises(ValueError, match="item 11"):
-        train("gpt2-large", data=2, device="cpu")
+    with pytest.raises(ValueError, match="does not split over 3 data"):
+        train("gpt2-large", data=3, device="cpu")

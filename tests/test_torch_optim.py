@@ -17,6 +17,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import _torch_helpers  # noqa: E402,F401  (one torch thread a worker)
+
 from repro.train import optim as R  # noqa: E402
 from repro_torch import tree  # noqa: E402
 from repro_torch.train import optim as T  # noqa: E402

@@ -9,6 +9,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import _torch_helpers  # noqa: E402,F401  (one torch thread a worker)
+
 ROOT = Path(__file__).resolve().parent.parent
 
 _IMPORT_ALL = r"""

@@ -31,6 +31,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import _torch_helpers  # noqa: E402,F401  (one torch thread a worker)
+
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ExecConfig  # noqa: E402
 from repro_torch.core.quant import quantize_tensor  # noqa: E402
@@ -47,19 +49,45 @@ CHILD = ROOT / "tests" / "_torch_sharded_child.py"
 PREFILL_ULP = 4
 
 
+class _Child:
+    """A running child; `result` waits for it and returns its npz."""
+
+    def __init__(self, mode, out_dir):
+        self.mode, self.path = mode, out_dir / f"{mode}.npz"
+        self.log = open(out_dir / f"{mode}.log", "w+")
+        env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+        env["PYTHONPATH"] = str(ROOT / "src")
+        self.proc = subprocess.Popen(
+            [sys.executable, str(CHILD), mode, str(self.path)], env=env,
+            stdout=self.log, stderr=subprocess.STDOUT, text=True)
+
+    def result(self):
+        try:
+            self.proc.wait(timeout=300)
+        finally:
+            self.stop()
+        self.log.seek(0)
+        text = self.log.read()
+        assert "CHILD_OK" in text, (
+            f"child {self.mode!r} failed:\n{text[-6000:]}")
+        return dict(np.load(self.path))
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def start_child(mode, out_dir):
+    """Start the reference's sharded paths in a child process (8
+    simulated devices)."""
+    return _Child(mode, out_dir)
+
+
 def run_child(mode, out_dir):
     """Run the reference's sharded paths in a child process (8 simulated
     devices); returns its npz."""
-    path = out_dir / f"{mode}.npz"
-    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
-    env["PYTHONPATH"] = str(ROOT / "src")
-    out = subprocess.run([sys.executable, str(CHILD), mode, str(path)],
-                         env=env, capture_output=True, text=True,
-                         timeout=300)
-    assert "CHILD_OK" in out.stdout, (
-        f"child {mode!r} failed:\n--- stdout ---\n{out.stdout[-2000:]}\n"
-        f"--- stderr ---\n{out.stderr[-4000:]}")
-    return dict(np.load(path))
+    return start_child(mode, out_dir).result()
 
 
 def _cfg(tag):

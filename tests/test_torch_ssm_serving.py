@@ -23,6 +23,9 @@ in turn; 16 layers, two scan periods, for the checkpoint).
 * Paged serving refuses both with the reference's reason; a reference
   checkpoint crosses over (a layer with no FFN gets no norm2); the launcher
   serves both from the contiguous pool.
+
+Each test that takes a model runs mamba2-130m here; its jamba cases run
+from tests/test_torch_ssm_serving_jamba.py, under the same names.
 """
 import re
 
@@ -65,6 +68,10 @@ from conftest import tiny_config  # noqa: E402
 
 MAMBA, JAMBA = "mamba2-130m", "jamba-v0.1-52b"
 MODELS = (MAMBA, JAMBA)
+# the per-model tests run mamba2-130m here and jamba, the heavier, from
+# tests/test_torch_ssm_serving_jamba.py (pytest-xdist's --dist loadfile
+# gives each file to one worker)
+SERVED = (MAMBA,)
 MODES = ("digital", "raceit_q8")
 MAX_LEN = 64
 PREFILL_LEN = 20
@@ -216,7 +223,7 @@ def test_configs_are_the_reference():
 # ---------------------------------------------------------------- serving
 
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("name", MODELS)
+@pytest.mark.parametrize("name", SERVED)
 def test_pool_matches_reference(name, mode, reference_norms):
     """The contiguous slot pool: the reference's tokens and counters; every
     decode step updates every slot's state, idle ones included."""
@@ -230,7 +237,7 @@ def test_pool_matches_reference(name, mode, reference_norms):
 
 
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("name", MODELS)
+@pytest.mark.parametrize("name", SERVED)
 def test_generate_matches_reference(name, mode, reference_norms, monkeypatch):
     """Solo `generate` of two rows, prompts of one token (the recurrent step
     at prefill) and past two chunks: the reference's tokens (raceit_q8: up
@@ -248,7 +255,7 @@ def test_generate_matches_reference(name, mode, reference_norms, monkeypatch):
 
 
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("name", MODELS)
+@pytest.mark.parametrize("name", SERVED)
 def test_batch_scheduler_matches_reference(name, mode, reference_norms,
                                            monkeypatch):
     """Left-padded buckets of two (the SSM scans the pads, as in the
@@ -270,7 +277,7 @@ def test_batch_scheduler_matches_reference(name, mode, reference_norms,
         assert getattr(ts, k) == getattr(rs, k), k
 
 
-@pytest.mark.parametrize("name", MODELS)
+@pytest.mark.parametrize("name", SERVED)
 def test_pool_against_solo_digital(name):
     """Digital pool tokens against solo `generate` tokens: counted, not
     held (the SSM scans the admission prefill's left pads; jamba's expert
@@ -293,7 +300,7 @@ def test_pool_against_solo_digital(name):
 # ------------------------------------------------------------------ plans
 
 @pytest.mark.parametrize("which", ["serving-raceit", "serving", "digital"])
-@pytest.mark.parametrize("name", MODELS)
+@pytest.mark.parametrize("name", SERVED)
 def test_plan_explain(name, which):
     ec = {"serving-raceit": ExecConfig.serving(mode="raceit"),
           "serving": ExecConfig.serving(),
@@ -308,7 +315,7 @@ def test_plan_explain(name, which):
 
 # --------------------------------------------------- paged serving refuses
 
-@pytest.mark.parametrize("name", MODELS)
+@pytest.mark.parametrize("name", SERVED)
 def test_paged_serving_refused_with_the_reference_reason(name):
     ref, port = _engines(name, "digital")
     why = RBatcher.pageable_reason(ref)
@@ -324,7 +331,7 @@ def test_paged_serving_refused_with_the_reference_reason(name):
 
 # ------------------------------------------------------------- checkpoints
 
-@pytest.mark.parametrize("name", MODELS)
+@pytest.mark.parametrize("name", SERVED)
 def test_checkpoint_crosses_over(tmp_path, name):
     """A reference checkpoint (mamba2: 2 layers, 2 scan periods of 1;
     jamba: 16 layers, 2 scan periods of 8) loads into the port's layout leaf
@@ -355,7 +362,7 @@ def test_checkpoint_crosses_over(tmp_path, name):
 
 # --------------------------------------------------------------- launcher
 
-@pytest.mark.parametrize("name", MODELS)
+@pytest.mark.parametrize("name", SERVED)
 def test_launcher_serves_from_the_pool(name, capsys):
     """`--continuous` serves both models from the contiguous slot pool with
     no further flag; ``--prefill-len`` pins the admission width."""

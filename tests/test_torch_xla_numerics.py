@@ -28,6 +28,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import _torch_helpers  # noqa: E402,F401  (one torch thread a worker)
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
