@@ -1848,10 +1848,12 @@ def profile_run(what, fn, warm, expect: dict, top: int = 8,
     res = dict(measured=True, wall_ms=1e3 * wall, device_busy_ms=busy_ms,
                idle_share=1 - busy_ms / (1e3 * wall), attention_ms=attn_ms,
                attention_share=sum(attn_ms.values()) / busy_ms,
+               launches=sum(n for _, _, n in rows),
                top=[dict(kernel=k[:90], ms=ms, count=n, share=ms / busy_ms)
                     for k, ms, n in rows[:top]])
     print(f"[profile] {what}: wall {res['wall_ms']:.1f} ms, device busy "
-          f"{busy_ms:.1f} ms, idle share {res['idle_share']:.3f}; attention "
+          f"{busy_ms:.1f} ms, {res['launches']} kernel launches, idle share "
+          f"{res['idle_share']:.3f}; attention "
           f"kernels {sum(attn_ms.values()):.1f} ms = "
           f"{res['attention_share']:.3f} of busy ({seen})", flush=True)
     for r in res["top"]:
@@ -4082,12 +4084,14 @@ def tiny_train_config(name: str, **kw):
 
 def grad_gap(got, want) -> tuple[float, tuple]:
     """The worst leaf's max|got - want| over its tolerance
-    (TRAIN_GRAD_RTOL max|want| + TRAIN_GRAD_ATOL), and its path."""
+    (TRAIN_GRAD_RTOL max|want| + TRAIN_GRAD_ATOL), and its path; each
+    leaf compared on ``got``'s device (a float32 difference: its rounding
+    is 2^-24 of the gap, far under the tolerance)."""
     from repro_torch import tree
     worst, where = 0.0, None
     for (path, a), (_, b) in zip(tree.leaves_with_paths(got),
                                  tree.leaves_with_paths(want)):
-        a, b = a.double().cpu(), b.double().cpu()
+        b = b.to(a.device)
         tol = TRAIN_GRAD_RTOL * float(b.abs().max()) + TRAIN_GRAD_ATOL
         r = float((a - b).abs().max()) / tol
         if r > worst:
@@ -4703,14 +4707,141 @@ def fsdp_serving(device_desc: str, ref) -> dict:
                 launches={"acam_attention_paged": lp})
 
 
+def tp_grad_check(what: str, cfg, mesh, batch: dict, device_desc: str,
+                  seed: int = 0) -> dict:
+    """The model-axis train step's loss and gradients against the no-mesh
+    step's on the same weights (``seed``) and batch, within the CPU
+    tests' contract (loss rtol TRAIN_LOSS_RTOL; each leaf within
+    TRAIN_GRAD_RTOL max|g| + TRAIN_GRAD_ATOL), each pass timed
+    (synchronised host clock); and each model position's weight products
+    of the mesh pass (`repro_torch.dist.tp.record`: every layer's are the
+    same, so this is one layer's)."""
+    from repro_torch.dist import place_model_params, tp, unplace
+    from repro_torch.models import Model
+    from repro_torch.train import trainer
+    net = Model(cfg, device=DEVICE)
+    params = net.init(torch.Generator(device=DEVICE).manual_seed(seed))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    l0, g0 = trainer.value_and_grad(net, params, batch)
+    torch.cuda.synchronize()
+    flat_ms = 1e3 * (time.perf_counter() - t0)
+    placed = place_model_params(params, cfg, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with tp.record() as log:
+        l1, g1 = trainer.value_and_grad(net, placed, batch, mesh=mesh)
+    torch.cuda.synchronize()
+    mesh_ms = 1e3 * (time.perf_counter() - t0)
+    loss_rel = abs(float(l1) - float(l0)) / abs(float(l0))
+    worst, where = grad_gap(unplace(g1, DEVICE), g0)
+    del g0, g1, placed, params
+    torch.cuda.empty_cache()
+    shapes = sorted({(m, n, shape) for m, n, shape in log})
+    per = "; ".join(
+        f"position {m}: " + ", ".join(f"{n} {tuple(sh)}" for mm, n, sh in
+                                      shapes if mm == m)
+        for m in sorted({m for m, _, _ in shapes}))
+    print(f"[fsdp] (b) {what}: loss {float(l1):.7f} against no mesh "
+          f"{float(l0):.7f} (rel {loss_rel:.2e}, tolerance "
+          f"{TRAIN_LOSS_RTOL}); worst gradient leaf "
+          f"{'/'.join(map(str, where or ()))} at {worst:.3f} of its "
+          f"tolerance; value_and_grad {mesh_ms:.1f} ms with the mesh, "
+          f"{flat_ms:.1f} ms without ({device_desc})", flush=True)
+    print(f"[fsdp] (b) {what}: each position's weight products: {per}",
+          flush=True)
+    check(loss_rel <= TRAIN_LOSS_RTOL,
+          f"{what}: loss {float(l1)} against no mesh {float(l0)}")
+    check(worst <= 1.0, f"{what}: gradient leaf {where} at {worst:.3f} of "
+          f"its tolerance")
+    check(len({m for m, _, _ in shapes}) == mesh.shape.get("model", 1),
+          f"{what}: products recorded at positions "
+          f"{sorted({m for m, _, _ in shapes})}")
+    return dict(loss=float(l1), loss_no_mesh=float(l0), loss_rel=loss_rel,
+                worst_grad=worst, worst_leaf="/".join(map(str, where or ())),
+                ms=mesh_ms, ms_no_mesh=flat_ms,
+                products=[[m, n, list(sh)] for m, n, sh in shapes])
+
+
+def mesh_training_families(device_desc: str) -> dict:
+    """25(b), the other families on the model axis, every position on
+    cuda:0: mamba2-130m at its width on data=1,model=2 (the SSD by heads),
+    its gradients against no mesh and 2 steps each way; mixtral-8x22b at
+    its width, 1 of 56 layers, on model=2 (attention by heads, the MoE's
+    TP-in-expert body), its gradients against no mesh."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist import MeshSpec, place_model_params
+    from repro_torch.models import Model
+    from repro_torch.train import optim, trainer
+    out = {}
+    rng = np.random.default_rng(SEED + 25)
+    spec = MeshSpec.parse("data=1,model=2")
+    mesh = spec.build(["cuda:0"] * spec.n_devices)
+    cfg = get_config("mamba2-130m").replace(param_dtype="float32",
+                                            compute_dtype="float32")
+    batches = [{"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (8, 256)).astype(np.int32), device=DEVICE)}
+        for _ in range(2)]
+    out["mamba2"] = tp_grad_check(
+        "mamba2-130m at its width, 24 layers, data=1,model=2, 8 x 256",
+        cfg, mesh, batches[0], device_desc)
+    opt_cfg = optim.AdamWConfig(lr=3e-4)
+    runs = {}
+    for name, m in (("none", None), ("mesh", mesh)):
+        net = Model(cfg, device=DEVICE)
+        params = net.init(torch.Generator(device=DEVICE).manual_seed(0))
+        if m is not None:
+            params = place_model_params(params, cfg, m)
+        step = trainer.make_train_step(net, opt_cfg, mesh=m)
+        opt_state = optim.adamw_init(params)
+        losses, ms = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt_state, met = step(params, opt_state, b)
+            losses.append(float(met["loss"]))
+            ms.append(1e3 * (time.perf_counter() - t0))
+        runs[name] = (losses, ms)
+        del params, opt_state, step
+    torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["mesh"][0],
+                                                  runs["none"][0]))
+    print(f"[fsdp] (b) mamba2-130m 2 steps: losses data=1,model=2 "
+          f"{', '.join(f'{x:.6f}' for x in runs['mesh'][0])}, no mesh "
+          f"{', '.join(f'{x:.6f}' for x in runs['none'][0])} (worst rel "
+          f"{rel:.2e}); step ms "
+          f"{', '.join(f'{x:.1f}' for x in runs['mesh'][1])} against "
+          f"{', '.join(f'{x:.1f}' for x in runs['none'][1])} "
+          f"({device_desc})", flush=True)
+    check(rel <= TRAIN_LOSS_RTOL, f"mamba2 mesh steps: losses "
+          f"{runs['mesh'][0]} against {runs['none'][0]}")
+    out["mamba2"].update(step_losses=runs["mesh"][0],
+                         step_losses_no_mesh=runs["none"][0],
+                         step_ms=runs["mesh"][1],
+                         step_ms_no_mesh=runs["none"][1])
+    spec = MeshSpec.parse("model=2")
+    mesh = spec.build(["cuda:0"] * spec.n_devices)
+    cfg = get_config("mixtral-8x22b").replace(
+        n_layers=1, param_dtype="float32", compute_dtype="float32",
+        remat="none")
+    tokens = rng.integers(0, cfg.vocab_size, (2, 256)).astype(np.int32)
+    out["mixtral"] = tp_grad_check(
+        "mixtral-8x22b at its width, 1 of 56 layers, model=2 "
+        "(TP-in-expert), 2 x 256", cfg, mesh,
+        {"tokens": torch.as_tensor(tokens, device=DEVICE)}, device_desc)
+    return out
+
+
 def mesh_training(device_desc: str) -> dict:
     """25(b): gpt2-large at its width, ``fsdp`` on, 3 steps through
-    `launch.train.train` on data=2,model=2 against 3 no-mesh steps on the
-    same weights (seed 0) and batches; the mesh run's checkpoint restored
+    `launch.train.train` on data=2,model=2 (each replica's products split
+    over its two model positions) against 3 no-mesh steps on the same
+    weights (seed 0) and batches, and the first batch's loss and
+    gradients against no mesh's; the mesh run's checkpoint restored
     without a mesh, bit for bit, and resumed for one more step through
     `launch.train` on the mesh (the launcher's auto-resume: the elastic
     restore onto its placed state) against that step taken on the run's
-    own state."""
+    own state; then `mesh_training_families`."""
     import shutil
     from repro_torch import tree
     from repro_torch.ckpt import CheckpointManager
@@ -4734,6 +4865,8 @@ def mesh_training(device_desc: str) -> dict:
                for _ in range(steps + 1)]  # the last: the resumed step's
     none = lambda: None
     quiet = {k: 0 for k in KERNEL_NAMES}
+    grads = tp_grad_check(f"gpt2-large at its width, fsdp, {FSDP_MESH}, "
+                          f"8 x 256", cfg, mesh, batches[0], device_desc)
     # no mesh: the launcher's weights, schedule and batches, step by step
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4863,7 +4996,9 @@ def mesh_training(device_desc: str) -> dict:
           f"params {resume_gap:.3e} apart (tolerance {resume_tol:.3e}), "
           f"{resume_s:.1f} s with its restore and save ({device_desc})",
           flush=True)
-    return dict(losses=mlosses, losses_no_mesh=losses, loss_rel=loss_rel,
+    families = mesh_training_families(device_desc)
+    return dict(grads=grads, families=families,
+                losses=mlosses, losses_no_mesh=losses, loss_rel=loss_rel,
                 param_gap=gap, param_tol=MESH_PARAM_SHARE * lr_sum,
                 step_ms=mstep_ms, step_ms_no_mesh=step_ms, peak_gib=mpeak,
                 peak_gib_no_mesh=peak, over_state_gib=mover,

@@ -34,7 +34,9 @@ collectives written out as explicit stages over a list of shards
 Only the ``model`` axis shards attention; replicas along ``data`` compute
 the same thing, so the port serves one replica set and ``data`` only splits
 the MoE batch, as the reference's ``batch_spec`` does. Training splits the
-batch over the ``data`` (and ``pod``) replicas (`replica_devices`).
+batch over the ``data`` (and ``pod``) replicas (`replica_devices`), and
+each replica's products over its ``model`` positions (`repro_torch.dist.tp`,
+the reference's `use_policy` / `constraint`).
 
 There is no ``torch.distributed`` job behind a mesh: one process drives
 every position, so there is no process group, DTensor or FSDP wrapper. A

@@ -18,8 +18,12 @@ reference's ``make_host_mesh(data, model)``) over the run's devices:
 cards; every position ``cpu`` with ``--device cpu``. The weights are
 placed on it under `param_specs` (with the FSDP axis map when the config
 sets ``fsdp``), AdamW's moments live with their stripes, each step splits
-the batch over the ``data`` replicas (`train.trainer.make_train_step`),
-and checkpoints hold whole leaves, so a run resumes on any mesh.
+the batch over the ``data`` replicas and, with ``--model`` above 1, each
+replica's products over its ``model`` positions: heads, FFN columns,
+vocab rows, sequence shards and SSM heads or chunks, the reference's
+`use_policy` partitioning (`train.trainer.make_train_step`,
+`repro_torch.dist.tp`). Checkpoints hold whole leaves, so a run resumes
+on any mesh.
 """
 from __future__ import annotations
 
@@ -50,7 +54,7 @@ def train(arch: str, steps: int = 100, batch: int = 8, seq: int = 256,
     device = resolve_device(device)
     if mesh is None and data * model > 1:
         mesh = make_host_mesh(data=data, model=model, kind=device.type)
-    if mesh is not None:  # replica 0 computes on its model position 0
+    if mesh is not None:  # the loss lands on replica 0's model position 0
         replicas = replica_devices(mesh)
         if batch % len(replicas):
             raise ValueError(f"a batch of {batch} rows does not split over "
@@ -94,7 +98,9 @@ def main(argv=None):
                     help="data-parallel replicas (the batch splits over "
                          "them)")
     ap.add_argument("--model", type=int, default=1,
-                    help="model-axis positions the weights stripe over")
+                    help="model-axis positions: the weights stripe over "
+                         "them and each computes its share of every "
+                         "product")
     ap.add_argument("--ckpt-dir", default=None,
                     help="checkpoint directory (default: "
                          "repro_torch_launch_train in the temp directory)")

@@ -28,6 +28,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..configs.base import ExecConfig, ModelConfig
 from ..dist.sharding import gather_tree, is_placed
+from ..dist.tp import all_gather
 from ..exec.plan import ExecPlan, as_plan
 from ..exec.plan import layer_plan as _mixer_plan
 from . import layers, moe as moe_mod, ssm
@@ -257,3 +258,75 @@ def apply_stack(params: list, x: torch.Tensor, *, cfg: ModelConfig,
         if new_caches is not None:
             new_caches.append(nc)
     return x, new_caches
+
+
+# --------------------------------------------------------------------------
+# the model axis (training): tensor- and sequence-parallel layers
+# --------------------------------------------------------------------------
+
+def apply_layer_tp(p: Params, xs: list, *, cfg: ModelConfig,
+                   plan: ExecPlan | ExecConfig, mixer: str, ffn_kind: str,
+                   positions: list, group, sp: bool,
+                   cross: Optional[list] = None) -> list:
+    """One cache-free layer over a data replica's model positions.
+
+    ``xs``: the residual stream, each position's sequence shard when
+    ``sp`` (Megatron-SP: the reference's ``constraint(x, "batch",
+    "sp_seq", None)`` after every layer), else each its whole copy. Norms
+    run on the shards; the normed stream is gathered whole before the
+    mixer and the FFN, and their per-position outputs come back to the
+    stream's layout (`TPGroup.finish`: a reduce-scatter of the
+    row-parallel partials). ``cross``: each position's whole encoder
+    output, for a decoder layer's cross attention."""
+    _check_layer(cfg, mixer, ffn_kind)
+    plan = _mixer_plan(as_plan(cfg, plan), mixer)
+    whole = (lambda parts: all_gather(parts, 1)) if sp else (lambda t: t)
+
+    def norm(name, parts):
+        return [layers.apply_norm({k: group.read(v, m)
+                                   for k, v in p[name].items()}, x, cfg)
+                for m, x in enumerate(parts)]
+
+    def add(parts, out):
+        return [x + o for x, o in zip(parts, group.finish(*out, sp))]
+
+    h = whole(norm("norm1", xs))
+    if mixer == "mamba":
+        out = ssm.mamba_tp(p["mamba"], h, cfg=cfg, plan=plan, group=group)
+    else:
+        out = layers.attention_tp(p["attn"], h, cfg=cfg, plan=plan,
+                                  positions=positions, group=group,
+                                  local=(mixer == "attn_local"))
+    xs = add(xs, out)
+    if "cross" in p and cross is not None:
+        xs = add(xs, layers.attention_tp(
+            p["cross"], whole(norm("norm_x", xs)), cfg=cfg, plan=plan,
+            positions=positions, group=group, cross=cross))
+    if ffn_kind == "moe":
+        xs = add(xs, moe_mod.moe_tp(p["moe"], norm("norm2", xs), cfg, plan,
+                                    group, sp))
+    elif ffn_kind == "dense":
+        xs = add(xs, layers.ffn_tp(p["ffn"], whole(norm("norm2", xs)), cfg,
+                                   plan, group))
+    return xs
+
+
+def apply_stack_tp(params: list, xs: list, *, cfg: ModelConfig,
+                   plan: ExecPlan | ExecConfig, positions: list, group,
+                   sp: bool, cross: Optional[list] = None,
+                   use_remat: bool = False) -> list:
+    """`apply_layer_tp` over every layer of ``params`` (placed or not: each
+    position reads its parts). ``use_remat`` checkpoints each layer as
+    ``cfg.remat`` says when autograd records; the stash is the layer's
+    input, each position's sequence shard, and the backward recomputes
+    each position's part on its own device."""
+    plan = as_plan(cfg, plan)
+    layer_fn = apply_layer_tp
+    if use_remat and torch.is_grad_enabled():
+        layer_fn = _remat_wrap(layer_fn, cfg)
+    for i, p in enumerate(params):
+        mixer, ffn_kind = cfg.layer_spec(i)
+        xs = layer_fn(p, xs, cfg=cfg, plan=plan, mixer=mixer,
+                      ffn_kind=ffn_kind, positions=positions, group=group,
+                      sp=sp, cross=cross)
+    return xs

@@ -744,7 +744,12 @@ def embed(p: Params, tokens: torch.Tensor, positions: torch.Tensor,
           cfg: ModelConfig) -> torch.Tensor:
     """Token embeddings plus learned or sinusoidal positions; RoPE and
     M-RoPE positions act in attention instead."""
-    x = p["tok_emb"][tokens.long()]
+    return _add_positions(p, p["tok_emb"][tokens.long()], positions, cfg)
+
+
+def _add_positions(p: Params, x: torch.Tensor, positions: torch.Tensor,
+                   cfg: ModelConfig) -> torch.Tensor:
+    """Token embeddings ``x`` plus learned or sinusoidal positions."""
     if cfg.pos_emb == "learned":
         x = x + p["pos_emb"][positions.long()]
     elif cfg.pos_emb == "sinusoidal":
@@ -763,3 +768,130 @@ def unembed(p: Params, x: torch.Tensor, cfg: ModelConfig,
     plan = as_plan(cfg, plan)
     w = p["tok_emb"].T if cfg.tie_embeddings else p["unembed"]
     return plan.lm_head(x, w)
+
+
+# --------------------------------------------------------------------------
+# the model axis: each position's heads, FFN columns and vocab rows
+# (the reference's `constraint` partitioning; see `repro_torch.dist.tp`)
+# --------------------------------------------------------------------------
+
+def attention_tp(p: Params, hs: list, *, cfg: ModelConfig, plan: ExecPlan,
+                 positions: list, group, local: bool = False,
+                 cross: Optional[list] = None, chunk: int = 1024):
+    """Cache-free self- (or, given each position's encoder output
+    ``cross``, cross-) attention over a data replica's model positions.
+
+    ``hs``: each position's whole normed input (B, S, D). Returns
+    (outputs, kind): with the heads split (``heads`` divides), position m
+    projects q, k, v from its ``wq``/``wk``/``wv`` stripes, attends over
+    its heads and multiplies by its ``wo`` rows: ``"partial"`` products
+    to be summed. Where ``n_kv_heads`` does not divide, k and v are
+    projected whole and each position takes the KV groups its q heads use
+    (``jnp.repeat`` order). Where the heads do not divide, every position
+    computes the layer whole: ``"full"``.
+    """
+    b, s, _ = hs[0].shape
+    hd = cfg.resolved_head_dim
+    heff = p["wq"].shape[1]
+    kvh = p["wk"].shape[1]
+    names = ("batch", None, "heads", None)
+    if not group.split((b, s, heff, hd), names, 2):
+        outs = []
+        for m, (h, pos) in enumerate(zip(hs, positions)):
+            pw = {k: group.read(w, m) for k, w in p.items()}
+            outs.append(attention(
+                pw, h, cfg=cfg, plan=plan, positions=pos, local=local,
+                cross_kv=None if cross is None else _cross_kv(pw, cross[m],
+                                                              plan),
+                chunk=chunk)[0])
+        return outs, "full"
+    kv_split = group.split((b, s, kvh, hd), names, 2)
+    rep = heff // kvh
+    kind = ("cross" if cross is not None else "bidir" if not cfg.causal
+            else "local" if local else "causal")
+    outs = []
+    for m, (h, pos) in enumerate(zip(hs, positions)):
+        h0, h1 = group.bounds(heff, m)
+        q = _linear(h, group.read(p["wq"], m, 1, "wq"), plan,
+                    group.read(p.get("bq"), m, 0))
+        src = h if cross is None else cross[m]
+        if kv_split:
+            k, v = (_linear(src, group.read(p[w], m, 1, w), plan,
+                            group.read(p.get(bias), m, 0))
+                    for w, bias in (("wk", "bk"), ("wv", "bv")))
+        else:
+            k, v = (_linear(src, group.read(p[w], m, name=w), plan,
+                            group.read(p.get(bias), m))
+                    for w, bias in (("wk", "bk"), ("wv", "bv")))
+        if cfg.pos_emb in ("rope", "mrope") and cross is None:
+            q = apply_rope(q, pos, cfg)
+            k = apply_rope(k, pos, cfg)
+        if not kv_split:  # the KV groups of this position's q heads
+            k, v = (t.repeat_interleave(rep, dim=2)[:, :, h0:h1]
+                    for t in (k, v))
+        o = plan.attention_prefill(q, k, v, scale=1.0 / math.sqrt(hd),
+                                   q_offset=0, kind=kind, window=cfg.window,
+                                   chunk=chunk, probs_dtype=_probs_dtype(cfg),
+                                   pad_lens=None)
+        o = o.reshape(b, s, h1 - h0, hd).to(h.dtype)
+        if heff > cfg.n_heads:  # hard-mask padded heads
+            o = o * (torch.arange(h0, h1, device=h.device) < cfg.n_heads
+                     )[None, None, :, None].to(o.dtype)
+        wo = group.read(p["wo"], m, 0, "wo")
+        outs.append(torch.einsum("bshd,hdm->bsm", o, wo.to(h.dtype)))
+    return outs, "partial"
+
+
+def _cross_kv(p: Params, enc: torch.Tensor, plan: ExecPlan) -> tuple:
+    """Cross attention's (k, v) of an encoder output, whole."""
+    return (_linear(enc, p["wk"], plan, p.get("bk")),
+            _linear(enc, p["wv"], plan, p.get("bv")))
+
+
+def ffn_tp(p: Params, hs: list, cfg: ModelConfig, plan: ExecPlan, group):
+    """The dense FFN over the model positions: with ``mlp`` dividing,
+    position m's ``w1``/``w3`` columns and ``w2`` rows, ``"partial"``
+    products; else the FFN whole on every position, ``"full"``."""
+    b, s, _ = hs[0].shape
+    F_ = p["w1"].shape[1]
+    if not group.split((b, s, F_), ("batch", None, "mlp"), 2):
+        return [ffn({k: group.read(w, m) for k, w in p.items()}, h, cfg,
+                    plan) for m, h in enumerate(hs)], "full"
+    cols = {"w1": 1, "w2": 0, "w3": 1}  # w2 row-parallel
+    return [ffn({k: group.read(w, m, cols[k], k) for k, w in p.items()}, h,
+                cfg, plan) for m, h in enumerate(hs)], "partial"
+
+
+def _vocab_table(p: Params, cfg: ModelConfig) -> tuple:
+    """The (V, D) token table and the lm head's weight with its vocab
+    dimension: (tok_emb, 0) when tied, else (unembed, 1)."""
+    return (p["tok_emb"], 0) if cfg.tie_embeddings else (p["unembed"], 1)
+
+
+def embed_tp(p: Params, tokens: list, positions: list, cfg: ModelConfig,
+             group, sp: bool) -> list:
+    """`embed` over the model positions, in the residual stream's layout
+    (sequence shards when ``sp``). With ``vocab`` dividing, position m
+    looks up the tokens its ``tok_emb`` rows hold (zeros for the rest) and
+    the parts are summed (one nonzero term a token: exact); else each
+    position looks up its tokens in the whole table."""
+    V, D = p["tok_emb"].shape
+    if group.split((V, D), ("vocab", None), 0):
+        parts = []
+        for m, tok in enumerate(tokens):
+            lo, hi = group.bounds(V, m)
+            rows = group.read(p["tok_emb"], m, 0, "tok_emb")
+            t = tok.long()
+            hit = ((t >= lo) & (t < hi))[..., None]
+            parts.append(torch.where(hit, rows[torch.where(
+                hit[..., 0], t - lo, 0)], torch.zeros((), dtype=rows.dtype,
+                                                      device=rows.device)))
+        xs = group.finish(parts, "partial", sp)
+    else:
+        xs = group.finish([group.read(p["tok_emb"], m)[tok.long()]
+                           for m, tok in enumerate(tokens)], "full", sp)
+    if sp:
+        positions = group.take(positions, -1)
+    return [_add_positions({k: group.read(v, m) for k, v in p.items()
+                            if k == "pos_emb"}, x, pos, cfg)
+            for m, (x, pos) in enumerate(zip(xs, positions))]

@@ -32,6 +32,15 @@ made, as in the reference.
 ``params`` may be placed on a mesh (`repro_torch.dist.place_params`): each
 entry point gathers the embeddings and norms onto the model's device, and
 the layer stacks are gathered a layer at a time (`blocks.apply_stack`).
+
+``Model(cfg, exec_cfg, device, mesh_ctx=MeshContext(mesh))`` is the
+reference's model under `use_policy` (its training): `forward`,
+`loss_fn` and `loss_sums` split the batch over the mesh's data replicas,
+and each replica's ``model`` positions compute their own heads, FFN
+columns, vocab rows, sequence shard and SSM heads or chunks
+(`repro_torch.dist.tp`; `blocks.apply_stack_tp`). The cached entry
+points (serving) run as without it, as the reference's engine never
+enters the policy.
 """
 from __future__ import annotations
 
@@ -41,7 +50,8 @@ import torch
 
 from .. import resolve_device
 from ..configs.base import ExecConfig, ModelConfig
-from ..dist.sharding import Placed, gather_tree, is_placed
+from ..dist.sharding import MeshContext, Placed, gather_tree, is_placed
+from ..dist.tp import all_gather, all_max, all_reduce, replica_groups
 from ..exec.plan import ExecPlan, as_plan
 from . import blocks, layers
 
@@ -114,14 +124,36 @@ def params_to(params, device):
     return params
 
 
+def batch_axis(key: str, value) -> int:
+    """The batch dimension of a batch entry: 1 for M-RoPE's (3, B, S)
+    ``positions``, else 0."""
+    return 1 if key == "positions" and value.ndim == 3 else 0
+
+
+_TP_SLOTS = ("matmul", "activation", "softmax", "attention_prefill",
+             "lm_head")
+
+
 class Model:
     def __init__(self, cfg: ModelConfig,
                  exec_cfg: "ExecConfig | ExecPlan" = ExecConfig(),
-                 device=None):
+                 device=None, mesh_ctx: Optional[MeshContext] = None):
         self.cfg = cfg
         self.plan = as_plan(cfg, exec_cfg)
         self.exec_cfg = self.plan.exec_cfg
-        self.device = resolve_device(device)
+        self.mesh_ctx = mesh_ctx if mesh_ctx is not None \
+            and mesh_ctx.mesh is not None else None
+        if self.mesh_ctx is None:
+            self.device = resolve_device(device)
+            return
+        self._groups = replica_groups(self.mesh_ctx.mesh)
+        self.device = self._groups[0].device
+        off = [f"{slot}={self.plan.backend(slot)}" for slot in _TP_SLOTS
+               if self.plan.backend(slot) != "digital"]
+        if off:
+            raise NotImplementedError(
+                f"the mesh's compute covers the digital plan the train step "
+                f"runs; this plan has {', '.join(off)}")
 
     @property
     def param_dtype(self):
@@ -266,7 +298,10 @@ class Model:
         ``enc_feats`` (B, encoder_len, d_model) for an encoder-decoder.
         ``use_remat`` checkpoints a decoder-only stack's layers when
         autograd records (`blocks.apply_stack`), as the reference's does;
-        the numbers do not change."""
+        the numbers do not change. Under a ``mesh_ctx`` the logits come
+        whole onto this model's device."""
+        if self.mesh_ctx is not None:
+            return self._mesh_forward(params, batch, use_remat)
         params = self._local(params)
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         positions = batch.get("positions")
@@ -292,7 +327,10 @@ class Model:
     def loss_sums(self, params: Params, batch: dict,
                   use_remat: bool = True):
         """(the sum of `loss_fn`'s masked token losses, the count of kept
-        tokens), float32: a data replica's part of a mesh step's mean."""
+        tokens), float32: a data replica's part of a mesh step's mean (with
+        a ``mesh_ctx``, the whole batch's over its replicas)."""
+        if self.mesh_ctx is not None:
+            return self._mesh_loss_sums(params, batch, use_remat)
         logits = self.forward(params, batch, use_remat=use_remat)
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         if self.cfg.causal:
@@ -312,6 +350,150 @@ class Model:
         gold = torch.take_along_dim(logits, targets[..., None], dim=-1)[..., 0]
         nll = (logz - gold) * mask
         return nll.sum(), mask.sum()
+
+    # ------------------------------------------------------ the mesh
+    def _replica_batches(self, batch: dict) -> list:
+        """The batch's rows split over the data replicas, each part where
+        the batch was (a replica's positions take it with
+        `TPGroup.local`); M-RoPE's (3, B, S) positions split on B."""
+        n = len(self._groups)
+        rows = torch.as_tensor(batch["tokens"]).shape[0]
+        if rows % n:
+            raise ValueError(f"a batch of {rows} rows does not split over "
+                             f"{n} data replicas")
+        parts = [{} for _ in range(n)]
+        for k, v in batch.items():
+            v = torch.as_tensor(v)
+            for part, chunk in zip(parts, v.chunk(n, batch_axis(k, v))):
+                part[k] = chunk
+        return parts
+
+    def _mesh_loss_sums(self, params, batch: dict, use_remat: bool):
+        nll = count = None
+        for group, part in zip(self._groups, self._replica_batches(batch)):
+            s, c = self._tp_loss_sums(params, part, group, use_remat)
+            nll = s if nll is None else nll + s.to(nll.device)
+            count = c if count is None else count + c.to(count.device)
+        return nll, count
+
+    def _mesh_forward(self, params, batch: dict, use_remat: bool):
+        outs = []
+        for group, part in zip(self._groups, self._replica_batches(batch)):
+            xs, sp = self._tp_trunk(params, part, group, use_remat)
+            logits, vocab = self._tp_logits(params, xs, sp, group,
+                                            part["tokens"].shape[1])
+            outs.append(all_gather(logits, 2 if vocab else 1)[0])
+        return torch.cat([o.to(self.device) for o in outs], 0)
+
+    def _tp_trunk(self, params, batch: dict, group, use_remat: bool):
+        """A replica's trunk over its model positions, through the final
+        norm: (each position's part of the stream, whether it is
+        sequence-sharded)."""
+        cfg = self.cfg
+        tokens = torch.as_tensor(batch["tokens"])
+        positions = batch.get("positions")
+        positions = (self._positions(tokens) if positions is None
+                     else torch.as_tensor(positions))
+        b, s = tokens.shape
+        sp = group.split((b, s, cfg.d_model), ("batch", "sp_seq", None), 1)
+        toks, poss = group.local(tokens), group.local(positions)
+        xs = layers.embed_tp(params["embed"], toks,
+                             [p if p.ndim == 2 else p[0] for p in poss],
+                             cfg, group, sp)
+        xs = [x.to(self.compute_dtype) for x in xs]
+        norm = lambda p, parts: [layers.apply_norm(
+            {k: group.read(v, m) for k, v in p.items()}, x, cfg)
+            for m, x in enumerate(parts)]
+        if cfg.is_encoder_decoder:
+            enc = torch.as_tensor(batch["enc_feats"]).to(self.compute_dtype)
+            ecfg = encoder_config(cfg)
+            esp = group.split(tuple(enc.shape), ("batch", "sp_seq", None), 1)
+            es = group.local(enc)
+            es = blocks.apply_stack_tp(
+                params["encoder"], group.take(es, 1) if esp else es,
+                cfg=ecfg, plan=self.plan,
+                positions=group.local(self._positions(enc[..., 0])),
+                group=group, sp=esp)
+            es = norm(params["enc_norm"], es)
+            xs = blocks.apply_stack_tp(
+                params["decoder"], xs, cfg=cfg, plan=self.plan,
+                positions=poss, group=group, sp=sp,
+                cross=all_gather(es, 1) if esp else es)
+        else:
+            xs = blocks.apply_stack_tp(params["blocks"], xs, cfg=cfg,
+                                       plan=self.plan, positions=poss,
+                                       group=group, sp=sp,
+                                       use_remat=use_remat)
+        return norm(params["final_norm"], xs), sp
+
+    def _tp_logits(self, params, xs: list, sp: bool, group, s: int):
+        """(each position's logits, whether they are vocab-parallel): its
+        vocab rows over the whole sequence (of ``s``) when ``vocab``
+        divides, else the whole vocab over its sequence rows
+        (`TPGroup.rows`)."""
+        table, vdim = layers._vocab_table(params["embed"], self.cfg)
+        b, V = xs[0].shape[0], table.shape[vdim]
+        if group.split((b, s, V), ("batch", None, "vocab"), 2):
+            xf = all_gather(xs, 1) if sp else xs
+            out = []
+            for m, x in enumerate(xf):
+                w = group.read(table, m, vdim, "lm_head")
+                out.append(self.plan.lm_head(x, w.T if vdim == 0 else w))
+            return out, True
+        out = []
+        for m, x in enumerate(xs):
+            w = group.read(table, m, name="lm_head")
+            out.append(self.plan.lm_head(
+                x if sp else x[:, group.rows(s, m)],
+                w.T if vdim == 0 else w))
+        return out, False
+
+    def _tp_loss_sums(self, params, batch: dict, group, use_remat: bool):
+        """A replica's (token-loss sum, kept count) over its model
+        positions. The targets and the mask are laid out by position (a
+        decoder's last position masked), each position summing its rows.
+        With vocab-parallel logits the cross entropy takes the global max
+        and the all-reduced sum of exps, and the target's logit from the
+        position holding it; autograd then sends each position only its
+        slice of softmax minus one-hot."""
+        tokens = torch.as_tensor(batch["tokens"]).long()
+        b, s = tokens.shape
+        xs, sp = self._tp_trunk(params, batch, group, use_remat)
+        logits, vocab = self._tp_logits(params, xs, sp, group, s)
+        mask = batch.get("loss_mask")
+        mask = (torch.ones((b, s), dtype=torch.float32) if mask is None
+                else torch.as_tensor(mask)[:, -s:].float())
+        if self.cfg.causal:
+            targets = torch.cat([tokens[:, 1:], tokens[:, :1]], 1)
+            mask = torch.cat([mask[:, 1:], torch.zeros_like(mask[:, :1])], 1)
+        else:
+            targets = tokens
+        tgt, msk = group.local(targets), group.local(mask)
+        if vocab:
+            V = logits[0].shape[-1]
+            top = all_max([lg.amax(-1) for lg in logits])
+            sums = all_reduce([torch.exp(lg - t[..., None]).sum(-1)
+                               for lg, t in zip(logits, top)])
+            golds = []
+            for m, (lg, t) in enumerate(zip(logits, tgt)):
+                local = t - m * V
+                hit = (local >= 0) & (local < V)
+                golds.append(torch.where(hit, torch.take_along_dim(
+                    lg, torch.where(hit, local, 0)[..., None], -1)[..., 0],
+                    torch.zeros((), device=lg.device)))
+            golds = all_reduce(golds)
+            parts = [(torch.log(z) + t - g)[:, group.rows(s, m)]
+                     * k[:, group.rows(s, m)]
+                     for m, (z, t, g, k) in enumerate(zip(sums, top, golds,
+                                                          msk))]
+        else:
+            parts = []
+            for m, (lg, t, k) in enumerate(zip(logits, tgt, msk)):
+                rows = group.rows(s, m)
+                gold = torch.take_along_dim(lg, t[:, rows, None], -1)[..., 0]
+                parts.append((torch.logsumexp(lg, -1) - gold) * k[:, rows])
+        nll = all_reduce([p.sum() for p in parts])[0]
+        return nll, mask.to(group.device).sum()
 
     def prefill(self, params: Params, tokens: torch.Tensor, cache,
                 enc_feats=None, positions=None, pad_lens=None):

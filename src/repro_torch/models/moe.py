@@ -42,6 +42,11 @@ reference's `shard_map` body on every shard, its collectives written out:
 Inside a shard the raceit activation and router softmax see the shard's
 tensors only, as the reference's body does.
 
+Training (`Model` with ``mesh_ctx``) runs the same two bodies over a data
+replica's model positions (`moe_tp`, from `blocks.apply_layer_tp`), the
+reference's `shard_map` under `use_policy`; their exchanges are
+`repro_torch.dist.tp`'s collectives, so gradients flow through them.
+
 Expert weights placed on the mesh (`repro_torch.dist.place_params`: w1/w3
 striped on d_ff, w2 on its rows, over ``model`` and under FSDP ``data``
 too) are gathered whole for the one-device body. The TP-in-expert body
@@ -56,7 +61,8 @@ from typing import NamedTuple
 import torch
 
 from ..configs.base import ExecConfig, ModelConfig
-from ..dist.sharding import Placed, gather, gather_tree
+from ..dist.sharding import gather_tree
+from ..dist.tp import TPGroup, add_all, all_gather, all_to_all
 from ..exec.plan import ExecPlan, as_plan
 from . import layers
 
@@ -174,92 +180,99 @@ def _moe_local(p: Params, x: torch.Tensor, cfg: ModelConfig,
     return _combine(y_e, r, B * S).reshape(B, S, D)
 
 
-def _part(w, dim: int, lo: int, hi: int, device):
-    """``w[lo:hi]`` along ``dim`` on ``device`` (None stays None); a placed
-    weight is read from the stripes that hold that block."""
-    if w is None:
-        return None
-    if isinstance(w, Placed):
-        return w.gather_slice(device, dim, lo, hi)
-    return w.narrow(dim, lo, hi - lo).to(device)
+def _tp_body(p: Params, xs: list, cfg: ModelConfig, plan: ExecPlan,
+             group) -> list:
+    """TP-in-expert over a data replica's model positions: position m
+    holds d_ff block m of ``w1``/``w3`` and those rows of ``w2``, routes
+    every token of its ``xs[m]`` and returns its partial output (the
+    reference's ``psum`` is the caller's sum)."""
+    F_ = p["w1"].shape[-1]
+    if F_ % group.size:
+        raise ValueError(f"TP-in-expert needs d_ff ({F_}) divisible by the "
+                         f"model axis ({group.size})")
+    read = group.read
+    return [_moe_local({"router": read(p["router"], m),
+                        "w1": read(p["w1"], m, 2, "w1"),
+                        "w2": read(p["w2"], m, 1, "w2"),
+                        "w3": read(p.get("w3"), m, 2, "w3")}, x, cfg, plan)
+            for m, x in enumerate(xs)]
 
 
-def _moe_tp(p: Params, x: torch.Tensor, cfg: ModelConfig, plan: ExecPlan,
-            devices: list) -> torch.Tensor:
-    """TP-in-expert: shard m holds d_ff columns ``[m*F/ms, (m+1)*F/ms)``
-    of w1/w3 and those rows of w2; the partials sum in shard order."""
-    B, S, D = x.shape
-    ms = len(devices)
-    F = p["w1"].shape[-1] // ms
-    y = None
-    for m, dev in enumerate(devices):
-        lo, hi = m * F, (m + 1) * F
-        w = {"router": gather(p["router"], dev),
-             "w1": _part(p["w1"], 2, lo, hi, dev),
-             "w2": _part(p["w2"], 1, lo, hi, dev),
-             "w3": _part(p.get("w3"), 2, lo, hi, dev)}
-        r, disp = _dispatch(w, x.to(dev).reshape(B * S, D), cfg, plan)
-        y_m = _combine(_experts(disp, w["w1"], w["w2"], w["w3"], cfg, plan),
-                       r, B * S).to(x.device)
-        y = y_m if y is None else y + y_m
-    return y.reshape(B, S, D)
-
-
-def _moe_ep(p: Params, x: torch.Tensor, cfg: ModelConfig, plan: ExecPlan,
-            devices: list) -> torch.Tensor:
-    """EP: shard j owns experts ``[j*E/ms, (j+1)*E/ms)``; the sequence is
-    sharded when it divides (otherwise every shard routes every token and
-    the owners compute the copies, as the reference's decode does)."""
-    B, S, D = x.shape
-    ms = len(devices)
-    El = cfg.n_experts // ms
-    seq = S % ms == 0
-    xs = ([c.to(d) for c, d in zip(x.chunk(ms, 1), devices)] if seq
-          else [x.to(d) for d in devices])
-    routed = [_dispatch({"router": gather(p["router"], d)},
-                        xm.reshape(-1, D), cfg, plan)
-              for xm, d in zip(xs, devices)]
-    C = routed[0][0].C
-    # the dispatch all_to_all: owner j gets every shard's block of its
-    # experts, concatenated on the capacity axis in shard order
-    ys = []
-    for j, dev in enumerate(devices):
-        blocks = torch.cat([disp[j * El:(j + 1) * El].to(dev)
-                            for _, disp in routed], dim=1)
-        ex = lambda w: _part(w, 0, j * El, (j + 1) * El, dev)
-        ys.append(_experts(blocks, ex(p["w1"]), ex(p["w2"]), ex(p.get("w3")),
-                           cfg, plan))
-    # the return all_to_all: shard m takes its C rows from every owner
-    outs = []
-    for m, ((r, _), xm) in enumerate(zip(routed, xs)):
-        y_e = torch.cat([y[:, m * C:(m + 1) * C].to(xm.device) for y in ys])
-        outs.append(_combine(y_e, r, xm.shape[0] * xm.shape[1]).reshape(
-            xm.shape).to(x.device))
-    return torch.cat(outs, dim=1) if seq else outs[0]
+def _ep_body(p: Params, xs: list, cfg: ModelConfig, plan: ExecPlan,
+             group) -> list:
+    """EP over a data replica's model positions: owner j runs experts
+    ``[j*E/M, (j+1)*E/M)``. Position m routes its ``xs[m]`` at its own
+    capacity; the (E, C, D) blocks go to their experts' owners, each
+    owner's block of every position concatenated on C (`all_to_all`), and
+    the outputs come back. Returns each position's output of its tokens."""
+    M = group.size
+    if cfg.n_experts % M:
+        raise ValueError(f"expert parallelism needs n_experts "
+                         f"({cfg.n_experts}) divisible by the model axis "
+                         f"({M})")
+    read = group.read
+    D = xs[0].shape[-1]
+    routed = [_dispatch({"router": read(p["router"], m)}, x.reshape(-1, D),
+                        cfg, plan) for m, x in enumerate(xs)]
+    blocks = all_to_all([disp for _, disp in routed], 0, 1)
+    ys = [_experts(blk, read(p["w1"], j, 0, "w1"), read(p["w2"], j, 0, "w2"),
+                   read(p.get("w3"), j, 0, "w3"), cfg, plan)
+          for j, blk in enumerate(blocks)]
+    back = all_to_all(ys, 1, 0)
+    return [_combine(y_e, r, x.shape[0] * x.shape[1]).reshape(x.shape)
+            for y_e, (r, _), x in zip(back, routed, xs)]
 
 
 def moe(p: Params, x: torch.Tensor, cfg: ModelConfig,
         plan: "ExecPlan | ExecConfig") -> torch.Tensor:
-    """The MoE FFN of one layer: (B, S, D) -> (B, S, D); over the shards of
-    the plan's ``ExecConfig.mesh`` when it names more than one device (the
-    mesh built for ``x``'s device kind, as the attention backends build
-    it)."""
+    """The MoE FFN of one layer: (B, S, D) -> (B, S, D); over the ``model``
+    shards of the plan's ``ExecConfig.mesh`` when it names more than one
+    device (the mesh built for ``x``'s device kind, as the attention
+    backends build it)."""
     plan = as_plan(cfg, plan)
     spec = plan.exec_cfg.mesh
     if spec is None or spec.n_devices <= 1:
         return _moe_local(gather_tree(p, x.device), x, cfg, plan)
     ctx = spec.context(kind=x.device.type)
-    devices = ctx.model_devices()
-    if len(devices) == 1:
+    group = TPGroup(ctx.mesh)
+    M = group.size
+    if M == 1:
         whole = gather_tree(p, x.device)
         body = lambda xb: _moe_local(whole, xb, cfg, plan)
     elif cfg.expert_parallel:
-        body = lambda xb: _moe_ep(p, xb, cfg, plan, devices)
+        def body(xb):
+            # the sequence sharded when it divides, else every shard routes
+            # every token and the owners compute the copies (the
+            # reference's decode)
+            if xb.shape[1] % M:
+                return _ep_body(p, group.local(xb), cfg, plan,
+                                group)[0].to(x.device)
+            outs = _ep_body(p, [c.to(d) for c, d in zip(xb.chunk(M, 1),
+                                                         group.devices)],
+                            cfg, plan, group)
+            return torch.cat([o.to(x.device) for o in outs], dim=1)
     else:
-        body = lambda xb: _moe_tp(p, xb, cfg, plan, devices)
+        body = lambda xb: add_all(_tp_body(p, group.local(xb), cfg, plan,
+                                           group), x.device)
     dp = ctx.dp_size
     if dp > 1 and x.shape[0] % dp == 0:
         # the data axes split the batch; each part is one replica set's
         # (run here on the first replica set's devices)
         return torch.cat([body(xb) for xb in x.chunk(dp, 0)], dim=0)
     return body(x)
+
+
+def moe_tp(p: Params, hs: list, cfg: ModelConfig, plan: ExecPlan, group,
+           sp: bool):
+    """The MoE FFN over a data replica's model positions, in training,
+    through the bodies `moe` runs (gradients flow through their
+    collectives). ``hs``: each position's normed input in the residual
+    stream's layout (sequence shards when ``sp``). Returns (outputs,
+    kind): EP (``expert_parallel``) routes each position's own tokens
+    (its sequence shard when ``sp``, the reference's ``seq_spec``; else
+    every token) into ``"shard"`` (``"full"``) outputs; TP-in-expert
+    routes every token on every position into ``"partial"`` products."""
+    if cfg.expert_parallel:
+        return _ep_body(p, hs, cfg, plan, group), ("shard" if sp else "full")
+    return _tp_body(p, all_gather(hs, 1) if sp else hs, cfg, plan,
+                    group), "partial"

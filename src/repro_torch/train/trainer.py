@@ -6,31 +6,34 @@ alone; gradients come from `torch.autograd.grad` over the tree's stored
 tensors (a tensor the loss does not reach gets zeros, as from `jax.grad`).
 
 With a mesh (``mesh=``, the parameters placed on it by
-`repro_torch.dist.place_params`), one process drives every data replica,
-as the reference's one SPMD program does (XLA inserts its gradient
-reduction and FSDP gathers from the placement; here they are explicit):
+`repro_torch.dist.place_params`), one process drives every position, as
+the reference's one SPMD program under `use_policy` does (XLA inserts its
+collectives from the placement and the activations' constraints; here
+they are explicit, `repro_torch.dist.tp`):
 
-* the batch's rows split over the ``pod``/``data`` replicas, each run on
-  its compute device (its ``model`` position 0; `replica_devices`), the
-  model gathering each layer there (`models.blocks.apply_stack`);
-* the loss is the whole batch's mean over every kept token, the replicas'
-  sums over the global count (not a mean of means);
+* the batch's rows split over the ``pod``/``data`` replicas, each run by
+  its ``model`` positions (`Model` with ``mesh_ctx``): every position
+  computes its own heads, FFN columns, vocab rows (where the vocab
+  divides), sequence shard and SSM heads or chunks, reads its stripes in
+  place and exchanges activations (Megatron's tensor- and
+  sequence-parallel layout; a replica with one position computes its
+  products whole there);
+* the loss is the whole batch's mean over every kept token, the
+  positions' and replicas' sums over the global count (not a mean of
+  means);
 * one `torch.autograd.grad` over the stripes, then each shard's copies
   summed (`Placed.sum_copies`: the data replicas' all-reduce, nothing to
   do where a shard has one holder, as on one card).
-
-The ``model`` axis stripes memory only: a replica computes its products
-whole on its device (tensor-parallel compute of the training products is
-not ported).
 """
 from __future__ import annotations
 
 import torch
 
 from .. import tree
-from ..dist.sharding import (MeshSpec, partwise, replica_devices, roots,
+from ..dist.sharding import (MeshContext, MeshSpec, partwise, roots,
                              sum_copies, with_roots)
 from ..models import Model
+from ..models.model import batch_axis
 from . import optim
 
 __all__ = ["make_grad_fn", "make_train_step", "make_eval_step",
@@ -42,23 +45,11 @@ def _on_device(model: Model, batch: dict) -> dict:
             for k, v in batch.items()}
 
 
-def _mesh_loss(model: Model, params, batch: dict, mesh, use_remat: bool):
-    """The whole batch's mean token loss, its rows split over the mesh's
-    data replicas, each run by a model on its compute device."""
-    devices = replica_devices(mesh)
-    rows = next(iter(batch.values())).shape[0]
-    if rows % len(devices):
-        raise ValueError(f"a batch of {rows} rows does not split over "
-                         f"{len(devices)} data replicas")
-    nll = count = None
-    for i, dev in enumerate(devices):
-        net = Model(model.cfg, model.plan, device=dev)
-        part = {k: torch.as_tensor(v).chunk(len(devices), 0)[i].to(dev)
-                for k, v in batch.items()}
-        s, c = net.loss_sums(params, part, use_remat=use_remat)
-        nll = s if nll is None else nll + s.to(nll.device)
-        count = c if count is None else count + c.to(count.device)
-    return nll / torch.clamp_min(count, 1.0)
+def _mesh_model(model: Model, mesh) -> Model:
+    """``model`` under the mesh's policy: the same config and plan, its
+    ``mesh_ctx`` the mesh (the reference's ``Model(cfg,
+    mesh_ctx=MeshContext(mesh))``)."""
+    return Model(model.cfg, model.plan, mesh_ctx=MeshContext(mesh))
 
 
 def value_and_grad(model: Model, params, batch: dict, use_remat: bool = True,
@@ -69,10 +60,8 @@ def value_and_grad(model: Model, params, batch: dict, use_remat: bool = True,
     flat = [t.detach().requires_grad_(True) for t in roots(params)]
     with torch.enable_grad():
         p = with_roots(params, flat)
-        if mesh is None:
-            loss = model.loss_fn(p, batch, use_remat=use_remat)
-        else:
-            loss = _mesh_loss(model, p, batch, mesh, use_remat)
+        net = model if mesh is None else _mesh_model(model, mesh)
+        loss = net.loss_fn(p, batch, use_remat=use_remat)
         grads = torch.autograd.grad(loss, flat, allow_unused=True)
     grads = [torch.zeros_like(t) if g is None else g
              for t, g in zip(flat, grads)]
@@ -91,8 +80,8 @@ def make_grad_fn(model: Model, microbatches: int = 1, mesh=None):
     """
     if isinstance(mesh, MeshSpec):
         mesh = mesh.build(kind=model.device.type)
-    grad_of = lambda params, batch: value_and_grad(model, params, batch,
-                                                   mesh=mesh)
+    net = model if mesh is None else _mesh_model(model, mesh)
+    grad_of = lambda params, batch: value_and_grad(net, params, batch)
 
     def grad_fn(params, batch):
         if mesh is None:
@@ -101,8 +90,8 @@ def make_grad_fn(model: Model, microbatches: int = 1, mesh=None):
             batch = {k: torch.as_tensor(v) for k, v in batch.items()}
         if microbatches <= 1:
             return grad_of(params, batch)
-        parts = {k: v.reshape((microbatches, -1) + v.shape[1:])
-                 for k, v in batch.items()}
+        parts = {k: v.unflatten(batch_axis(k, v), (microbatches, -1))
+                 .movedim(batch_axis(k, v), 0) for k, v in batch.items()}
         loss = None
         grads = tree.map(partwise(lambda p: torch.zeros(
             p.shape, dtype=torch.float32, device=p.device)), params)

@@ -5,6 +5,7 @@ tests/test_torch_sharded.py and tests/test_torch_sharded_serving.py).
     python tests/_torch_sharded_child.py ops OUT.npz
     python tests/_torch_sharded_child.py moe OUT.npz
     python tests/_torch_sharded_child.py fsdp OUT.npz
+    python tests/_torch_sharded_child.py tp_train OUT.npz
 
 It runs under ``XLA_FLAGS=--xla_force_host_platform_device_count=8``: the
 parent pytest process pins JAX to one CPU device (tests/conftest.py), and
@@ -36,6 +37,16 @@ gpt2-large and command-r-35b (``fsdp`` set) and tiny mixtral-8x22b, from
 ``Model.init(PRNGKey(0))``, resident int8 (``raceit``). Greedy tokens of
 `generate` and of mixed-length `ContinuousBatcher` traces (paged where
 the model pages).
+
+``tp_train``: the reference's training under `use_policy` (its
+``launch/train.py``): for each case of tests/_torch_tp_cases.py, the
+model built with ``mesh_ctx`` on ``make_host_mesh(data, model)``, its
+``Model.init(PRNGKey(0))`` weights placed under `param_specs`, and the
+jitted ``jax.value_and_grad`` of ``loss_fn`` (``use_remat=True``, as its
+train step calls it) entered under the policy; beside it the unsharded
+jitted ``jax.value_and_grad`` on one device. With microbatches, each
+part's values, meaned (its train step's scan). Saved: the weights' and
+both gradients' leaves in JAX's order, and both losses.
 
 The inputs are tests/_torch_sharded_cases.py's (numpy seeds); the npz
 holds the outputs and records under ``<case>/<name>`` keys. Prints
@@ -256,11 +267,53 @@ def run_fsdp(out):
               f"paged {paged}", flush=True)
 
 
+def run_tp_train(out):
+    from repro.dist.sharding import (MeshContext, ShardingPolicy,
+                                     named_sharding_tree, param_specs,
+                                     use_policy)
+    from repro.launch.mesh import make_host_mesh
+    from repro.models import Model
+    from _torch_tp_cases import TP_CASES, tp_batch, tp_config
+    for tag, (arch, _, data, model, B, S, micro) in TP_CASES.items():
+        cfg = tp_config(tag)
+        params = jax.jit(Model(cfg).init)(jax.random.PRNGKey(0))
+        batch = tp_batch(tag, cfg)
+        rows = lambda k, v, i: (v[:, i * B // micro:(i + 1) * B // micro]
+                                if k == "positions" and v.ndim == 3 else
+                                v[i * B // micro:(i + 1) * B // micro])
+        parts = [{k: jnp.asarray(rows(k, v, i)) for k, v in batch.items()}
+                 for i in range(micro)]
+        mesh = make_host_mesh(data=data, model=model)
+        policy, mctx = ShardingPolicy(mesh), MeshContext(mesh)
+        rm = Model(cfg, mesh_ctx=mctx)
+        loss = lambda p, b: rm.loss_fn(p, b, use_remat=True)
+        with use_policy(policy, mctx):
+            placed = jax.device_put(params, named_sharding_tree(
+                param_specs(params, cfg, policy), mesh))
+            vg = jax.jit(jax.value_and_grad(loss))
+            got = [vg(placed, b) for b in parts]
+        flat = Model(cfg)
+        one = jax.jit(jax.value_and_grad(
+            lambda p, b: flat.loss_fn(p, b, use_remat=True)))
+        ref = [one(params, b) for b in parts]
+        for name, vals in (("mesh", got), ("flat", ref)):
+            out[f"{tag}/{name}/loss"] = np.mean([float(l) for l, _ in vals])
+            grads = jax.tree.map(lambda *g: sum(g) / micro,
+                                 *[g for _, g in vals])
+            for i, g in enumerate(jax.tree.leaves(grads)):
+                out[f"{tag}/{name}/g{i}"] = np.asarray(g)
+        for i, w in enumerate(jax.tree.leaves(params)):
+            out[f"{tag}/w{i}"] = np.asarray(w)
+        print(f"  {tag}: loss {float(out[f'{tag}/mesh/loss']):.6f} "
+              f"(unsharded {float(out[f'{tag}/flat/loss']):.6f})", flush=True)
+
+
 def main():
     mode, path = sys.argv[1], sys.argv[2]
     assert len(jax.devices()) == 8, jax.devices()
     out = {}
-    {"ops": run_ops, "moe": run_moe, "fsdp": run_fsdp}[mode](out)
+    {"ops": run_ops, "moe": run_moe, "fsdp": run_fsdp,
+     "tp_train": run_tp_train}[mode](out)
     np.savez(path, **out)
     print("CHILD_OK")
 
