@@ -35,6 +35,7 @@ import functools
 import warnings
 from typing import Optional
 
+from .. import trace
 from ..configs.base import ExecConfig, ModelConfig
 
 from .registry import OP_SLOTS, BackendSpec, get_backend, list_backends
@@ -94,16 +95,19 @@ class ExecPlan:
     # ------------------------------------------------------- slot dispatch
     def matmul(self, x, w, bias=None):
         """x (..., K) @ w (K, ...); w may be a resident `QuantizedWeight`."""
-        return self.op("matmul").spec.impl(self, x, w, bias)
+        with trace.span("plan.matmul"):
+            return self.op("matmul").spec.impl(self, x, w, bias)
 
     def activation(self, x, name=None):
         """Pointwise nonlinearity. ``name`` comes from the call site's
         ModelConfig (sub-stacks may run a replaced config); None falls back
         to the plan's model_cfg."""
-        return self.op("activation").spec.impl(self, x, name)
+        with trace.span("plan.activation"):
+            return self.op("activation").spec.impl(self, x, name)
 
     def softmax(self, logits, axis=-1):
-        return self.op("softmax").spec.impl(self, logits, axis)
+        with trace.span("plan.softmax"):
+            return self.op("softmax").spec.impl(self, logits, axis)
 
     def attention_prefill(self, q, k, v, *, scale, q_offset, kind, window,
                           chunk, probs_dtype=None, pad_lens=None):
@@ -116,10 +120,11 @@ class ExecPlan:
         (B,) int32 marks per-row left-pad key prefixes that must be masked
         on top of the structural mask (batched-serving buckets).
         """
-        return self.op("attention_prefill").spec.impl(
-            self, q, k, v, scale=scale, q_offset=q_offset, kind=kind,
-            window=window, chunk=chunk, probs_dtype=probs_dtype,
-            pad_lens=pad_lens)
+        with trace.span("plan.attention_prefill"):
+            return self.op("attention_prefill").spec.impl(
+                self, q, k, v, scale=scale, q_offset=q_offset, kind=kind,
+                window=window, chunk=chunk, probs_dtype=probs_dtype,
+                pad_lens=pad_lens)
 
     def attention_decode(self, q, k, v, *, kv_len, scale, pad_valid=None,
                          block_table=None, page_size=None):
@@ -135,19 +140,22 @@ class ExecPlan:
         backends, so the kwargs are only forwarded when actually paged.
         """
         spec = self.op("attention_decode").spec
-        if block_table is None:  # contiguous callers: unchanged interface
+        with trace.span("plan.attention_decode"):
+            if block_table is None:  # contiguous callers: unchanged interface
+                return spec.impl(self, q, k, v, kv_len=kv_len, scale=scale,
+                                 pad_valid=pad_valid)
             return spec.impl(self, q, k, v, kv_len=kv_len, scale=scale,
-                             pad_valid=pad_valid)
-        return spec.impl(self, q, k, v, kv_len=kv_len, scale=scale,
-                         pad_valid=pad_valid, block_table=block_table,
-                         page_size=page_size)
+                             pad_valid=pad_valid, block_table=block_table,
+                             page_size=page_size)
 
     def dd_matmul(self, a_codes, b_codes):
         """Data-dependent matmul on int8 codes -> int32."""
-        return self.op("dd_matmul").spec.impl(self, a_codes, b_codes)
+        with trace.span("plan.dd_matmul"):
+            return self.op("dd_matmul").spec.impl(self, a_codes, b_codes)
 
     def lm_head(self, x, w):
-        return self.op("lm_head").spec.impl(self, x, w)
+        with trace.span("plan.lm_head"):
+            return self.op("lm_head").spec.impl(self, x, w)
 
     # ------------------------------------------------------------- explain
     def explain(self) -> str:

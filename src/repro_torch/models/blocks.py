@@ -26,6 +26,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from .. import trace
 from ..configs.base import ExecConfig, ModelConfig
 from ..dist.sharding import gather_tree, is_placed
 from ..dist.tp import all_gather
@@ -248,13 +249,15 @@ def apply_stack(params: list, x: torch.Tensor, *, cfg: ModelConfig,
         layer_fn = _remat_wrap(layer_fn, cfg)
     for i, p in enumerate(params):
         mixer, ffn_kind = cfg.layer_spec(i)
-        x, nc = layer_fn(p, x, cfg=cfg, plan=plan, mixer=mixer,
-                            ffn_kind=ffn_kind, positions=positions,
-                            cache=caches[i] if caches is not None else None,
-                            pad_lens=pad_lens, pad_prompt_len=pad_prompt_len,
-                            slot_lens=slot_lens, block_table=block_table,
-                            page_size=page_size, chunk_offs=chunk_offs,
-                            enc_kv=enc_kv[i] if enc_kv is not None else None)
+        with trace.span("model.layer", layer=i):
+            x, nc = layer_fn(
+                p, x, cfg=cfg, plan=plan, mixer=mixer, ffn_kind=ffn_kind,
+                positions=positions,
+                cache=caches[i] if caches is not None else None,
+                pad_lens=pad_lens, pad_prompt_len=pad_prompt_len,
+                slot_lens=slot_lens, block_table=block_table,
+                page_size=page_size, chunk_offs=chunk_offs,
+                enc_kv=enc_kv[i] if enc_kv is not None else None)
         if new_caches is not None:
             new_caches.append(nc)
     return x, new_caches

@@ -60,6 +60,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import trace
 from ..configs.base import ExecConfig, ModelConfig
 from ..dist.sharding import gather_tree
 from ..dist.tp import TPGroup, add_all, all_gather, all_to_all
@@ -142,33 +143,51 @@ def _dispatch(p: Params, xf: torch.Tensor, cfg: ModelConfig,
     blocks (the drop bin left out)."""
     T, D = xf.shape
     E, K = cfg.n_experts, cfg.top_k
-    logits = xf.float() @ p["router"]
-    r = route(logits, cfg, plan)
-    token_id = torch.arange(T, device=xf.device).repeat_interleave(K)
-    disp = torch.zeros((E * r.C + 1, D), device=xf.device, dtype=xf.dtype)
-    disp[r.slot] = xf[token_id]  # kept slots are distinct; the rest: drop bin
-    return r, disp[:-1].reshape(E, r.C, D)
+    with trace.span("moe.route"):
+        logits = xf.float() @ p["router"]
+        r = route(logits, cfg, plan)
+        if trace.on:
+            _count_load(r, E)
+        token_id = torch.arange(T, device=xf.device).repeat_interleave(K)
+        disp = torch.zeros((E * r.C + 1, D), device=xf.device,
+                           dtype=xf.dtype)
+        disp[r.slot] = xf[token_id]  # kept slots distinct; the rest: drop bin
+        return r, disp[:-1].reshape(E, r.C, D)
+
+
+def _count_load(r: Routing, E: int) -> None:
+    """The tracer's expert load of one routing, under the open layer:
+    ``moe.kept``, the kept (token, choice) pairs per expert (a device int64
+    count, `bincount` of ``expert[keep]`` without its host sync), and
+    ``moe.rows``, the E x C dispatch rows the expert products compute."""
+    layer = trace.current("layer")
+    kept = torch.zeros(E, dtype=torch.int64, device=r.expert.device)
+    kept.index_add_(0, r.expert.reshape(-1), r.keep.to(torch.int64))
+    trace.add("moe.kept", kept, key=layer)
+    trace.add("moe.rows", E * r.C, key=layer)
 
 
 def _experts(disp: torch.Tensor, w1, w2, w3, cfg: ModelConfig,
              plan: ExecPlan) -> torch.Tensor:
     """The three batched expert products, the activation and the GLU."""
-    h = _bmm(disp, w1)
-    h = plan.activation(h, cfg.activation)
-    if w3 is not None:
-        h = h * _bmm(disp, w3)
-    return _bmm(h, w2)
+    with trace.span("moe.experts"):
+        h = _bmm(disp, w1)
+        h = plan.activation(h, cfg.activation)
+        if w3 is not None:
+            h = h * _bmm(disp, w3)
+        return _bmm(h, w2)
 
 
 def _combine(y_e: torch.Tensor, r: Routing, T: int) -> torch.Tensor:
     """Gather each (token, choice) slot's output, weight it, and sum the
     choices: (E, C, D) -> (T, D)."""
     E, C, D = y_e.shape
-    y_pad = torch.cat([y_e.reshape(E * C, D),
-                       torch.zeros((1, D), device=y_e.device,
-                                   dtype=y_e.dtype)])
-    w = (r.gate.reshape(-1) * r.keep)[:, None].to(y_e.dtype)
-    return (y_pad[r.slot] * w).reshape(T, -1, D).sum(dim=1)
+    with trace.span("moe.combine"):
+        y_pad = torch.cat([y_e.reshape(E * C, D),
+                           torch.zeros((1, D), device=y_e.device,
+                                       dtype=y_e.dtype)])
+        w = (r.gate.reshape(-1) * r.keep)[:, None].to(y_e.dtype)
+        return (y_pad[r.slot] * w).reshape(T, -1, D).sum(dim=1)
 
 
 def _moe_local(p: Params, x: torch.Tensor, cfg: ModelConfig,

@@ -42,6 +42,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from .. import trace
 from .batching import Request, RequestError
 from .engine import GenerationEngine
 from .metrics import ServeMetrics
@@ -252,6 +253,7 @@ class ContinuousBatcher:
             self.metrics.on_reject(req.rid)
         else:
             self.metrics.on_submit(req.rid, req.tenant)
+            trace.queued(req.rid)
 
     def _lock_prefill_len(self):
         """Pin the contiguous admission width to the longest queued prompt,
@@ -297,11 +299,14 @@ class ContinuousBatcher:
             prompt = np.full((1, self.prefill_len), self.pad_id, np.int32)
             prompt[0, pad:] = req.prompt
             row_cache = eng.model.init_cache(1, eng.max_len)
+            trace.started(req.rid)
             logits, row_cache = eng._prefill(
                 eng.params, self._device(prompt), row_cache,
                 pad_lens=self._device(np.array([pad], np.int32)))
             self.prefills += 1
-            if bool(eng.nonfinite_rows(logits[:, -1])[0]):
+            with trace.span("serve.readback", site="admit"):
+                bad = bool(eng.nonfinite_rows(logits[:, -1])[0])
+            if bad:
                 # retire the request before its row reaches the pool; the
                 # slot stays free
                 req.error = RequestError(
@@ -313,7 +318,8 @@ class ContinuousBatcher:
             if self.cache is None:
                 self.cache = eng.model.init_slot_cache(self.n, eng.max_len)
             scatter_row(self.cache, row_cache, slot)
-            tok0 = int(eng._sample(logits[:, -1], self.rng).cpu()[0])
+            with trace.span("serve.readback", site="admit"):
+                tok0 = int(eng._sample(logits[:, -1], self.rng).cpu()[0])
             # the prompt is in the cache; the first token is written by the
             # next decode step
             self.tokens_out += 1
@@ -405,12 +411,16 @@ class ContinuousBatcher:
             offs[i] = st.fed
             feeds[i] = feed
             bt[i] = self.block_table[i]
+            if trace.on:  # closes the request's queue wait on its first chunk
+                trace.started(st.req.rid)
         logits, self.cache = eng._prefill_chunk(
             eng.params, self._device(toks), self.cache, self._device(offs),
             self._device(feeds), self._device(bt), self.page_size)
         self.chunk_calls += 1
-        bad = eng.nonfinite_rows(logits[:, -1])
-        sampled = eng._sample(logits[:, -1], self.rng).cpu().numpy()
+        with trace.span("serve.readback", site="chunk"):
+            bad = eng.nonfinite_rows(logits[:, -1])
+        with trace.span("serve.readback", site="chunk"):
+            sampled = eng._sample(logits[:, -1], self.rng).cpu().numpy()
         for i in feeding:
             st = self.slots[i]
             if bad[i]:
@@ -459,75 +469,86 @@ class ContinuousBatcher:
         Returns the rids retired by this step.
         """
         self.metrics.tick()
-        before = set(self.done)
-        self._admit()
-        if self.queue and len(self.dead_slots) >= self.n:
-            while self.queue:
+        with trace.span("serve.step", step=self.metrics.step):
+            before = set(self.done)
+            with trace.span("serve.admit"):
+                self._admit()
+            if self.queue and len(self.dead_slots) >= self.n:
+                while self.queue:
+                    req = self.queue.popleft()
+                    req.error = RequestError(
+                        rid=req.rid, stage="admit", step=0,
+                        reason="all slots quarantined by decode-step faults")
+                    self.done[req.rid] = req
+                    self.metrics.on_error(req.rid)
+            elif (self.paged and self.queue
+                  and all(s is None for s in self.slots)
+                  and self._head_starved()):
                 req = self.queue.popleft()
                 req.error = RequestError(
                     rid=req.rid, stage="admit", step=0,
-                    reason="all slots quarantined by decode-step faults")
+                    reason=f"request needs {self._pages_needed(req)} pages "
+                           f"but only {self.allocator.n_free} remain "
+                           f"allocatable ({self.allocator.n_leaked} leaked "
+                           f"by quarantined slots)")
                 self.done[req.rid] = req
                 self.metrics.on_error(req.rid)
-        elif (self.paged and self.queue
-              and all(s is None for s in self.slots)
-              and self._head_starved()):
-            req = self.queue.popleft()
-            req.error = RequestError(
-                rid=req.rid, stage="admit", step=0,
-                reason=f"request needs {self._pages_needed(req)} pages but "
-                       f"only {self.allocator.n_free} remain allocatable "
-                       f"({self.allocator.n_leaked} leaked by quarantined "
-                       f"slots)")
-            self.done[req.rid] = req
-            self.metrics.on_error(req.rid)
-        if self.paged:
-            self._chunk_step()
-        # mid-prefill paged slots sit the decode out as empty rows
-        active = [i for i, s in enumerate(self.slots)
-                  if s is not None
-                  and (not self.paged or s.fed == len(s.req.prompt))]
-        if active:
-            eng = self.engine
-            # per-slot lengths INCLUDING this step's write; 0 = empty slot
-            slot_lens = np.zeros(self.n, np.int32)
-            for i in active:
-                slot_lens[i] = self.slots[i].length + 1
             if self.paged:
-                bt = np.zeros_like(self.block_table)
-                for i in active:
-                    bt[i] = self.block_table[i]
-                logits, self.cache = eng._decode(
-                    eng.params, self._device(self.tok), self.cache,
-                    self._device(slot_lens), self._device(bt), self.page_size)
-            else:
-                pad_lens = np.zeros(self.n, np.int32)
-                for i in active:
-                    pad_lens[i] = self.slots[i].pad
-                logits, self.cache = eng._decode(
-                    eng.params, self._device(self.tok), self.cache,
-                    self._device(slot_lens), pad_lens=self._device(pad_lens),
-                    pad_prompt_len=self.prefill_len)
-            self.decode_steps += 1
-            bad = eng.nonfinite_rows(logits[:, -1])
-            toks = eng._sample(logits[:, -1], self.rng).cpu().numpy()
-            for i in active:
-                st = self.slots[i]
-                if bad[i]:
-                    st.req.error = RequestError(
-                        rid=st.req.rid, stage="decode", step=len(st.tokens),
-                        reason="non-finite logits at the decode step")
-                    self.done[st.req.rid] = st.req
-                    self.metrics.on_error(st.req.rid)
-                    self._quarantine(i)
-                    continue
-                st.length += 1
-                st.tokens.append(int(toks[i]))
-                self.tokens_out += 1
-                self.decode_tokens += 1
-                self.metrics.on_token(st.req.rid, st.req.tenant)
-                self.tok[i, 0] = int(toks[i])
-                self._retire_if_done(i)
+                with trace.span("serve.chunk"):
+                    self._chunk_step()
+            # mid-prefill paged slots sit the decode out as empty rows
+            active = [i for i, s in enumerate(self.slots)
+                      if s is not None
+                      and (not self.paged or s.fed == len(s.req.prompt))]
+            if active:
+                with trace.span("serve.decode"):
+                    eng = self.engine
+                    # per-slot lengths INCLUDING this step's write; 0 =
+                    # an empty slot
+                    slot_lens = np.zeros(self.n, np.int32)
+                    for i in active:
+                        slot_lens[i] = self.slots[i].length + 1
+                    if self.paged:
+                        bt = np.zeros_like(self.block_table)
+                        for i in active:
+                            bt[i] = self.block_table[i]
+                        logits, self.cache = eng._decode(
+                            eng.params, self._device(self.tok), self.cache,
+                            self._device(slot_lens), self._device(bt),
+                            self.page_size)
+                    else:
+                        pad_lens = np.zeros(self.n, np.int32)
+                        for i in active:
+                            pad_lens[i] = self.slots[i].pad
+                        logits, self.cache = eng._decode(
+                            eng.params, self._device(self.tok), self.cache,
+                            self._device(slot_lens),
+                            pad_lens=self._device(pad_lens),
+                            pad_prompt_len=self.prefill_len)
+                    self.decode_steps += 1
+                    with trace.span("serve.readback", site="decode"):
+                        bad = eng.nonfinite_rows(logits[:, -1])
+                    with trace.span("serve.readback", site="decode"):
+                        toks = eng._sample(logits[:, -1],
+                                           self.rng).cpu().numpy()
+                    for i in active:
+                        st = self.slots[i]
+                        if bad[i]:
+                            st.req.error = RequestError(
+                                rid=st.req.rid, stage="decode",
+                                step=len(st.tokens),
+                                reason="non-finite logits at the decode step")
+                            self.done[st.req.rid] = st.req
+                            self.metrics.on_error(st.req.rid)
+                            self._quarantine(i)
+                            continue
+                        st.length += 1
+                        st.tokens.append(int(toks[i]))
+                        self.tokens_out += 1
+                        self.decode_tokens += 1
+                        self.metrics.on_token(st.req.rid, st.req.tenant)
+                        self.tok[i, 0] = int(toks[i])
+                        self._retire_if_done(i)
         return sorted(set(self.done) - before)
 
     def run_all(self) -> dict[int, Request]:

@@ -31,7 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, trace
 from ..configs.base import ExecConfig, ModelConfig
 from ..dist.sharding import place_model_params
 from ..models import Model
@@ -107,23 +107,28 @@ class GenerationEngine:
 
     @torch.no_grad()
     def _prefill(self, params, tokens, cache, pad_lens=None, enc_feats=None):
-        return self.model.prefill(params, tokens, cache, enc_feats=enc_feats,
-                                  pad_lens=pad_lens)
+        with trace.span("engine.prefill"):
+            return self.model.prefill(params, tokens, cache,
+                                      enc_feats=enc_feats, pad_lens=pad_lens)
 
     @torch.no_grad()
     def _decode(self, params, token, cache, slot_lens=None, block_table=None,
                 page_size=None, pad_lens=None, pad_prompt_len=None):
-        return self.model.decode_step(params, token, cache,
-                                      slot_lens=slot_lens,
-                                      block_table=block_table,
-                                      page_size=page_size, pad_lens=pad_lens,
-                                      pad_prompt_len=pad_prompt_len)
+        with trace.span("engine.decode"):
+            return self.model.decode_step(params, token, cache,
+                                          slot_lens=slot_lens,
+                                          block_table=block_table,
+                                          page_size=page_size,
+                                          pad_lens=pad_lens,
+                                          pad_prompt_len=pad_prompt_len)
 
     @torch.no_grad()
     def _prefill_chunk(self, params, tokens, cache, chunk_offs, chunk_lens,
                        block_table, page_size):
-        return self.model.prefill_chunk(params, tokens, cache, chunk_offs,
-                                        chunk_lens, block_table, page_size)
+        with trace.span("engine.prefill_chunk"):
+            return self.model.prefill_chunk(params, tokens, cache, chunk_offs,
+                                            chunk_lens, block_table,
+                                            page_size)
 
     @staticmethod
     def nonfinite_rows(logits: torch.Tensor) -> np.ndarray:

@@ -4,11 +4,11 @@ The recorder's clock is the **scheduler step counter** — `ServeMetrics
 .tick()` once at the top of every `ContinuousBatcher.step()` — never
 wall-clock: nothing here touches a traced value or a timer, so the
 numbers are bit-deterministic across runs and machines and can gate CI
-(`benchmarks/kernels_bench.py` emits them as ``serve/`` rows with zero
-run-to-run noise). One step is one scheduler round (admissions + at most
-one chunk call + at most one decode call), which is exactly the unit an
-accelerator pays for: a request's step-TTFT counts the queue wait plus
-every chunk call its prompt needed, so a prefix-cache hit that skips
+(`ContinuousBatcher.summary()` merges them into the report that
+`launch/serve.py` reads). One step is one scheduler round (admissions +
+at most one chunk call + at most one decode call), which is exactly the
+unit an accelerator pays for: a request's step-TTFT counts the queue wait
+plus every chunk call its prompt needed, so a prefix-cache hit that skips
 chunk calls shows up directly.
 
 Latency definitions (all in steps):
@@ -23,8 +23,8 @@ Latency definitions (all in steps):
 `Histogram` keeps raw samples (these are scheduler counters, thousands
 at most, not a hot path) and reports exact order-statistic percentiles —
 p50/p99 by the nearest-rank rule — plus mean/max. `jain` is Jain's
-fairness index over per-tenant weighted service, the bench's
-``serve/router_fairness_jain`` row.
+fairness index over per-tenant weighted service, the summary's
+``fairness_jain``.
 """
 from __future__ import annotations
 

@@ -27,9 +27,11 @@ they are explicit, `repro_torch.dist.tp`):
 """
 from __future__ import annotations
 
+import itertools
+
 import torch
 
-from .. import tree
+from .. import trace, tree
 from ..dist.sharding import (MeshContext, MeshSpec, partwise, roots,
                              sum_copies, with_roots)
 from ..models import Model
@@ -61,8 +63,10 @@ def value_and_grad(model: Model, params, batch: dict, use_remat: bool = True,
     with torch.enable_grad():
         p = with_roots(params, flat)
         net = model if mesh is None else _mesh_model(model, mesh)
-        loss = net.loss_fn(p, batch, use_remat=use_remat)
-        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        with trace.span("train.forward"):
+            loss = net.loss_fn(p, batch, use_remat=use_remat)
+        with trace.span("train.backward"):
+            grads = torch.autograd.grad(loss, flat, allow_unused=True)
     grads = [torch.zeros_like(t) if g is None else g
              for t, g in zip(flat, grads)]
     return loss.detach(), sum_copies(with_roots(params, grads))
@@ -112,12 +116,15 @@ def make_train_step(model: Model, opt_cfg: optim.AdamWConfig,
     gradients of `make_grad_fn` (``microbatches``, ``mesh``), then AdamW.
     """
     grad_fn = make_grad_fn(model, microbatches, mesh)
+    steps = itertools.count()
 
     def train_step(params, opt_state, batch):
-        loss, grads = grad_fn(params, batch)
-        updates, opt_state, om = optim.adamw_update(grads, opt_state, params,
-                                                    opt_cfg)
-        params = optim.apply_updates(params, updates)
+        with trace.span("train.step", step=next(steps)):
+            loss, grads = grad_fn(params, batch)
+            with trace.span("train.optimizer"):
+                updates, opt_state, om = optim.adamw_update(
+                    grads, opt_state, params, opt_cfg)
+                params = optim.apply_updates(params, updates)
         return params, opt_state, {"loss": loss, **om}
 
     return train_step
