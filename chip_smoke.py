@@ -27,12 +27,22 @@ Phases, in order; any failure raises and the script exits non-zero:
             the wrapper's and the plain version's per-call times
             (back-to-back calls, host work included), and the bound (bytes
             over 3.35 TB/s, int8 operations over 1979 TOP/s). The kernels
-            line reports the device times.
+            line reports the device times. The paged entries' operand
+            prolog (prolog_max + prolog_quant) at gpt2-large's pool (513
+            pages of 64 x 20 x 64, 32 slots of 200..1000 keys on shuffled
+            pages, stale values elsewhere), a decode call and a 256-row
+            chunk: q's codes, the named pages' K/V codes, the scales and
+            amaxes equal to its plain version bit for bit, timed against
+            it, bound from the live rows; and one paged decode call under
+            torch.profiler in a record_function range, to show whether the
+            range's device time takes the prolog's and the attention
+            kernels' launches.
 4. main     gpt2-large at its published width (36 layers, d 1280, 20 heads,
             vocab 50257, random weights from a seed, resident int8) served by
             the paged continuous batcher: 8 slots, 64-token pages and chunks,
             16 requests of 64..512 prompt tokens and 32 new tokens each. The
-            paged launch count must be 2 x 36 x (chunk calls + decode steps).
+            paged launch count must be 2 x 36 x (chunk calls + decode steps),
+            and the prolog's the same (phases 12, 15 and 20 likewise).
    profile  the first 4 requests of phase 4's trace, 8 new tokens each,
             served again under torch.profiler: device time by kernel over
             every model call, and the card's idle share (1 - device busy
@@ -1407,6 +1417,170 @@ def phase_kernels_new(device_desc: str) -> list:
     return rows
 
 
+# ------------------------------------ phase 3: the paged operand prolog
+
+# gpt2-large's paged serving pool (1 + 32 x 16 pages of 64 rows, 20 heads
+# of 64), the gpt2l-long cell's
+PROLOG_POOL = dict(n_slots=32, max_pages=16, page_size=64, kv_heads=20,
+                   head_dim=64)
+
+
+def prolog_case(name, gen, sq):
+    """The pool with 32 slots of 200..1000 keys on shuffled pages, +-1e4 in
+    every row no slot reads (freed pages, dead rows, the trash page), and
+    float32 q of ``sq`` rows a slot as the serving layer passes it (a
+    (B, Sq, H, hd) tensor transposed): a decode call (1) or a chunk (256)."""
+    n_slots, mp, ps, KV, hd = (PROLOG_POOL[k] for k in (
+        "n_slots", "max_pages", "page_size", "kv_heads", "head_dim"))
+    n_pages = 1 + n_slots * mp
+    lens = gen.integers(200, 1001, n_slots)
+    tg = torch.Generator(device=DEVICE).manual_seed(int(gen.integers(2 ** 31)))
+    stale = lambda: 1e4 * (2 * torch.randint(
+        0, 2, (n_pages, ps, KV, hd), generator=tg, device=DEVICE) - 1
+    ).float()
+    k, v = stale(), stale()
+    order = gen.permutation(np.arange(1, n_pages))
+    bt = np.zeros((n_slots, mp), np.int64)
+    for b, ln in enumerate(lens):
+        for j in range(-(-int(ln) // ps)):
+            bt[b, j] = order[b * mp + j]
+            lv = min(ps, int(ln) - j * ps)
+            for pool in (k, v):
+                pool[bt[b, j], :lv] = 1.5 * torch.randn(
+                    (lv, KV, hd), generator=tg, device=DEVICE)
+    q = 1.5 * torch.randn((n_slots, sq, KV, hd), generator=tg, device=DEVICE)
+    return dict(name=name, q=q.transpose(1, 2), k=k, v=v,
+                bt=torch.as_tensor(bt, dtype=torch.int32, device=DEVICE),
+                lens=torch.as_tensor(lens, dtype=torch.int32,
+                                     device=DEVICE))
+
+
+def prolog_bounds(c) -> dict:
+    """The prolog's least time: from the shapes (`cost.paged_prolog`, every
+    block-table entry live), and from the live rows (each live float32 K/V
+    byte and q read once; q's codes and the code rows of the named pages
+    and the trash page written once)."""
+    from repro_torch.kernels import cost
+    n_pages, ps, KV, hd = c["k"].shape
+    n_slots, mp = c["bt"].shape
+    n_q, row = c["q"].numel(), KV * hd
+    static = cost.bound_ms(*cost.total(cost.paged_prolog(
+        n_q, n_slots, mp, n_pages, ps, row, 1, 4)))
+    named = int(torch.unique(c["bt"]).numel())  # the trash page among them
+    live = int(c["lens"].sum())
+    nbytes = (5 * n_q + 2 * 4 * live * row + 2 * named * ps * row
+              + 4 * c["bt"].numel() + 4 * n_slots)
+    return dict(bound_ms=cost.bound_ms(nbytes, 0)[0],
+                static_bound_ms=static[0], live_rows=live,
+                named_pages=named)
+
+
+def check_prolog_case(c) -> dict:
+    """The wrapper (`ops._paged_operands`, two launches) against the plain
+    version on the same card: q's codes, the code rows of every page the
+    block table names, the three scales and amaxes, bit for bit; the
+    launch function against the wrapper; then the times, as
+    `check_codes_case`."""
+    from repro_torch.kernels import acam_prolog
+    from repro_torch.kernels import ops as K
+    args = (c["q"], c["k"], c["v"], c["bt"], c["lens"], 1)
+    named = torch.unique(c["bt"].long())
+    n_pages, KV = c["k"].shape[0], c["k"].shape[2]
+
+    def parts(qq, kq, vq):
+        rows = lambda x: x.codes.reshape(n_pages, KV, -1)[named]
+        return ([qq.codes, rows(kq), rows(vq)],
+                [x.view(torch.int32) for t in (qq, kq, vq)
+                 for x in (t.scale, t.amax)])
+    before = launch_counts()["acam_prolog"]
+    got = parts(*K._paged_operands(*args))
+    check(launch_counts()["acam_prolog"] == before + 2,
+          "acam_prolog was not the kernel launched")
+    want = parts(*K.paged_operands_plain(*args))
+    launch = lambda: acam_prolog.launch_prolog(*args)
+    qc, kc, vc, st = launch()
+    torch.cuda.synchronize()
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        check(torch.equal(g, w), f"{c['name']}: the prolog differs from its "
+                                 f"plain version")
+    check(torch.equal(qc, got[0][0])
+          and torch.equal(kc.reshape(n_pages, KV, -1)[named], got[0][1]),
+          f"{c['name']}: the launch function differs from the wrapper")
+    ms, host_free = device_ms(launch, 20)
+    wrapper_ms = cuda_ms(lambda: K._paged_operands(*args), 20)
+    plain = lambda: K.paged_operands_plain(*args)
+    plain_ms, plain_host_free = device_ms(plain, 1, reps=3)
+    plain_call_ms = cuda_ms(plain, 3, warmup=1)
+    return dict(kernel="acam_prolog", max_abs_err=0.0, ms=ms,
+                ms_host_free=host_free, wrapper_ms=wrapper_ms,
+                plain_ms=plain_ms, plain_host_free=plain_host_free,
+                plain_call_ms=plain_call_ms, bound_by="bytes",
+                library_ms=None, **prolog_bounds(c))
+
+
+def prolog_attribution(c) -> dict:
+    """One paged decode entry call at the case's pool inside a
+    ``record_function`` range, under torch.profiler with the CPU and CUDA
+    activities (as `bench/entries/serve.py`'s profiler): the device ms of
+    each kernel of the call, and the range's ``device_time_total``, which
+    takes only the kernels the profiler ties to launches inside it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.kernels import ops as K
+    span = "smoke.attention"
+    call = lambda: K.raceit_attention_decode_paged(
+        c["q"], c["k"], c["v"], c["lens"], c["bt"], fold_scale=True)
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(span):
+            call()
+        torch.cuda.synchronize()
+    kernels: dict = {}
+    span_ms = 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and e.name != span:
+            kernels[e.name] = (kernels.get(e.name, 0.0)
+                               + (e.time_range.end - e.time_range.start) / 1e3)
+        elif e.device_type == DeviceType.CPU and e.name == span:
+            span_ms += getattr(e, "device_time_total",
+                               getattr(e, "cuda_time_total", 0.0)) / 1e3
+    of = lambda *parts: sum(t for n, t in kernels.items()
+                            if any(p in n for p in parts))
+    return dict(span_device_ms=span_ms, kernels_ms=sum(kernels.values()),
+                prolog_ms=of("prolog_max", "prolog_quant"),
+                attention_ms=of("paged_sums", "paged_probv"),
+                kernels=sorted(kernels.items(), key=lambda kv: -kv[1]))
+
+
+def phase_prolog(device_desc: str) -> tuple[list, dict]:
+    gen = np.random.default_rng(SEED + 30)
+    rows = []
+    cases = [prolog_case("gpt2-large paged prolog decode", gen, 1),
+             prolog_case("gpt2-large paged prolog chunk 256", gen, 256)]
+    for c in cases:
+        r = check_prolog_case(c)
+        print(f"[kernels] {c['name']} (acam_prolog, {r['live_rows']} live "
+              f"rows on {r['named_pages']} named pages): equal to plain; "
+              f"kernel device {r['ms']:.4f} ms (CUDA events"
+              f"{'' if r['ms_host_free'] else ', host gaps included'}; "
+              f"wrapper call {r['wrapper_ms']:.4f} ms), plain device "
+              f"{r['plain_ms']:.3f} ms (call {r['plain_call_ms']:.3f} ms), "
+              f"bound {1e3 * r['bound_ms']:.3f} us from the live rows, "
+              f"{1e3 * r['static_bound_ms']:.3f} us from the shapes "
+              f"({device_desc})", flush=True)
+        rows.append(dict(case=c["name"], **r))
+    att = prolog_attribution(cases[0])
+    print(f"[kernels] one paged decode call in a record_function range: "
+          f"its device_time_total {att['span_device_ms']:.4f} ms; the "
+          f"call's kernels {att['kernels_ms']:.4f} ms, of them the prolog "
+          f"{att['prolog_ms']:.4f} ms and paged_sums + paged_probv "
+          f"{att['attention_ms']:.4f} ms ({device_desc})", flush=True)
+    return rows, att
+
+
 def phase_split_sweep(device_desc: str) -> list:
     """Every split of the pages (paged kernel, mode pot), of the keys into
     spans of runs (contiguous and one-tile kernels, mode pot) and of K (MVM
@@ -1562,6 +1736,7 @@ def phase_main(device_desc: str):
     reset_launches()
     cb, secs, times, peak_pages = serve(eng, requests, timed=True)
     launches = A.launches["acam_attention_paged"]
+    prolog = launch_counts()["acam_prolog"]
     for r in requests:
         done = cb.done[r.rid]
         check(done.error is None, f"request {r.rid} failed: {done.error}")
@@ -1570,6 +1745,8 @@ def phase_main(device_desc: str):
     calls = cb.chunk_calls + cb.decode_steps
     check(launches > 0 and launches == 2 * cfg.n_layers * calls,
           f"{launches} attention launches for {calls} model calls")
+    check(prolog == launches, f"{prolog} prolog launches for {calls} model "
+                              f"calls")
     tokens = sum(len(cb.done[r.rid].result) for r in requests)
     res = dict(tokens=tokens, seconds=secs, tokens_per_s=tokens / secs,
                decode_steps=cb.decode_steps, chunk_calls=cb.chunk_calls,
@@ -1577,14 +1754,15 @@ def phase_main(device_desc: str):
                chunk_ms=1e3 * float(np.mean(times["chunk"])),
                peak_pages=peak_pages, pages=cb.n_pages - 1,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-               launches=launches)
+               launches=launches, prolog_launches=prolog)
     print(f"[main] gpt2-large 36L d1280 raceit_q8 paged: {tokens} tokens in "
           f"{secs:.2f} s = {res['tokens_per_s']:.1f} tok/s; "
           f"{cb.decode_steps} decode steps (mean {res['decode_ms']:.1f} ms), "
           f"{cb.chunk_calls} chunk calls (mean {res['chunk_ms']:.1f} ms); "
           f"peak pages {peak_pages}/{cb.n_pages - 1}; peak memory "
           f"{res['peak_mem_gib']:.2f} GiB; attention launches {launches} = "
-          f"2 x 36 x {calls} ({device_desc})", flush=True)
+          f"2 x 36 x {calls}, prolog launches {prolog} ({device_desc})",
+          flush=True)
     return res, eng
 
 
@@ -1671,14 +1849,15 @@ def with_exec(eng, exec_cfg, n_layers=None, device=None):
 
 def launch_dicts():
     from repro_torch.kernels import acam_attention as A
-    from repro_torch.kernels import acam_lut, acam_mvm, acam_softmax
+    from repro_torch.kernels import (acam_lut, acam_mvm, acam_prolog,
+                                     acam_softmax)
     return (A.launches, acam_lut.launches, acam_mvm.launches,
-            acam_softmax.launches)
+            acam_softmax.launches, acam_prolog.launches)
 
 
 def reset_launches():
     """Set every kernel's launch count to 0; returns the attention kernels'
-    counts (`launch_counts` reads all six)."""
+    counts (`launch_counts` reads all seven)."""
     for counts in launch_dicts():
         for key in counts:
             counts[key] = 0
@@ -2074,9 +2253,10 @@ def phase_sqrt_d_api(device_desc: str) -> dict:
               f"{what}: bad output")
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    counts = {k: v for k, v in launch_counts().items() if k in KERNEL_NAMES}
+    counts = {k: v for k, v in launch_counts().items()
+              if k in KERNEL_NAMES or k == "acam_prolog"}
     check(counts == {"acam_attention_paged": 2, "acam_attention": 4,
-                     "acam_attention_single": 1},
+                     "acam_attention_single": 1, "acam_prolog": 2},
           f"the float wrappers launched {counts}")
     for what, (fn, args) in calls.items():  # the first rows, card and CPU
         if what == "decode_paged":
@@ -2377,10 +2557,12 @@ def phase_gqa_bias_paged(device_desc: str) -> dict:
         done = cb.done[r.rid]
         check(done.error is None and len(done.result) == r.n_new,
               f"request {r.rid}: {done.error or len(done.result)}")
+    counts["acam_prolog"] = launch_counts()["acam_prolog"]
     calls = cb.chunk_calls + cb.decode_steps
     check(counts["acam_attention_paged"] == 2 * cfg.n_layers * calls
           and counts["acam_attention"] == 0
-          and counts["acam_attention_single"] == 0,
+          and counts["acam_attention_single"] == 0
+          and counts["acam_prolog"] == counts["acam_attention_paged"],
           f"{counts} attention launches for {calls} model calls")
     tokens = sum(len(cb.done[r.rid].result) for r in requests)
     res = dict(tokens=tokens, seconds=secs, tokens_per_s=tokens / secs,
@@ -2796,11 +2978,13 @@ def phase_moe_paged(device_desc: str) -> dict:
         done = cb.done[r.rid]
         check(done.error is None and len(done.result) == r.n_new,
               f"request {r.rid}: {done.error or len(done.result)}")
+    counts["acam_prolog"] = launch_counts()["acam_prolog"]
     calls = cb.chunk_calls + cb.decode_steps
     check(cb.paged and counts["acam_attention_paged"]
           == 2 * cfg.n_layers * calls
           and counts["acam_attention"] == 0
-          and counts["acam_attention_single"] == 0,
+          and counts["acam_attention_single"] == 0
+          and counts["acam_prolog"] == counts["acam_attention_paged"],
           f"{counts} attention launches for {calls} model calls")
     tokens = sum(len(cb.done[r.rid].result) for r in requests)
     res = dict(tokens=tokens, seconds=secs, tokens_per_s=tokens / secs,
@@ -3678,10 +3862,12 @@ def phase_mrope_paged(device_desc: str) -> dict:
         done = cb.done[r.rid]
         check(done.error is None and len(done.result) == r.n_new,
               f"request {r.rid}: {done.error or len(done.result)}")
+    counts["acam_prolog"] = launch_counts()["acam_prolog"]
     calls = cb.chunk_calls + cb.decode_steps
     check(counts["acam_attention_paged"] == 2 * cfg.n_layers * calls
           and counts["acam_attention"] == 0
-          and counts["acam_attention_single"] == 0,
+          and counts["acam_attention_single"] == 0
+          and counts["acam_prolog"] == counts["acam_attention_paged"],
           f"{counts} attention launches for {calls} model calls")
     tokens = sum(len(cb.done[r.rid].result) for r in requests)
     res = dict(tokens=tokens, seconds=secs, tokens_per_s=tokens / secs,
@@ -5050,6 +5236,7 @@ def main() -> None:
 
     kernel_rows = phase_kernels(desc)
     new_rows = phase_kernels_new(desc)
+    prolog_rows, prolog_att = phase_prolog(desc)
     sweep_rows = phase_split_sweep(desc)
     lap("3 kernels")
     main_res, eng = phase_main(desc)
@@ -5174,7 +5361,22 @@ def main() -> None:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"]})
-    print("[record] " + json.dumps({"cases": kernel_rows + new_rows,
+    # the paged entries' prolog (no TPU kernel: the reference quantizes in
+    # jnp), one per paged attention call on the main paths
+    head = prolog_rows[0]
+    kernels.append({
+        "name": "acam_prolog", "route": "cuda",
+        "source": "src/repro_torch/csrc/acam_prolog.cu", "replaces": None,
+        "launches": (main_res["prolog_launches"]
+                     + gqa_res["launches"]["acam_prolog"]
+                     + moe_paged_res["launches"]["acam_prolog"]
+                     + mrope_res["launches"]["acam_prolog"]),
+        "max_abs_err": 0.0, "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None})
+    print("[record] " + json.dumps({"cases": kernel_rows + new_rows
+                                    + prolog_rows,
+                                    "prolog_attribution": prolog_att,
                                     "sweep": sweep_rows, "ptxas": ptxas,
                                     "main": main_res, "profile": prof_res,
                                     "bucketed": bucket_res,

@@ -33,6 +33,9 @@ RULES = {
     "KC106": "dynamic shared memory exceeds the per-block opt-in limit",
     "KC107": "paged cache write routing violates the trash-page fence",
     "KC108": "page allocator can issue the trash page",
+    "KC110": "paged operand prolog plan: a block reads past its page's "
+             "live rows, a slab, q or a page's code rows are covered twice "
+             "or never, or a grid exceeds CUDA's limits",
     # tracelint — AST lint
     "TL101": "host synchronisation on the decode path (.item(), .tolist(), "
              ".cpu(), .numpy(), int/float/bool of a tensor, a branch on a "

@@ -39,6 +39,15 @@ becomes part of KC101, as each output row belongs to the one unit that
 is KC101's grid check, since ``kv_len[g]`` and ``block_table[slot]`` are
 indexed by the unit's group and slot.
 
+KC110 — the paged operand prolog (``csrc/acam_prolog.cu``, its plan
+    `repro_torch.kernels.acam_prolog.prolog_plan`): the max launch's blocks
+    of a block-table entry read each live element of its page once and
+    nothing past the live rows, its q blocks each element of q once; the
+    quantise launch's blocks cover each page slab once and write each code
+    of the page's ``KV x rep`` stripe rows once, inside the page's rows;
+    vector steps stay inside a row; both grids within CUDA's limits.
+    Over the catalog's (KV heads, head dim, rep) and every page size.
+
 Concrete companions, ported directly: KC107 checks the paged write routing
 (`models.layers.paged_write_targets_{chunk,decode}`) and KC108 drives
 `serve.paged.PageAllocator` through alloc/free/promote/evict cycles, on
@@ -401,6 +410,128 @@ def check_serving_plans(max_len: int = MAX_LEN) -> tuple[list, dict, _Tally]:
 
 
 # ---------------------------------------------------------------------------
+# the paged operand prolog (csrc/acam_prolog.cu)
+# ---------------------------------------------------------------------------
+
+def prolog_slab_span(plan, c: int, n: int) -> tuple[int, int]:
+    """[lo, hi): the elements block ``c`` of a page takes of the first
+    ``n`` of its slab (``prolog_max``: the live ones; ``prolog_quant``:
+    all of them)."""
+    lo = c * plan.chunk
+    return lo, min(lo + plan.chunk, n)
+
+
+def prolog_code_at(i: int, page: int, t: int, page_size: int, kv_heads: int,
+                   head_dim: int, rep: int) -> int:
+    """The code offset ``prolog_quant`` writes slab element ``i`` of
+    ``page`` to, copy ``t`` of its KV head."""
+    row = kv_heads * head_dim
+    r, kvh, d = i // row, (i % row) // head_dim, i % head_dim
+    return (((page * kv_heads + kvh) * rep + t) * page_size + r) * head_dim + d
+
+
+def _spans_cover(spans, n: int) -> bool:
+    """The non-empty [lo, hi) spans tile [0, n) in order."""
+    at = 0
+    for lo, hi in spans:
+        if hi <= lo:
+            continue
+        if lo != at:
+            return False
+        at = hi
+    return at == n
+
+
+def check_prolog_plan(n_slots: int, max_pages: int, n_pages: int,
+                      page_size: int, kv_heads: int, head_dim: int, n_q: int,
+                      rep: int = 1, plan=None) -> list[Finding]:
+    """KC110 of one prolog call (``plan``: the call's own)."""
+    from ..kernels import acam_prolog as AP
+    plan = plan or AP.prolog_plan(n_slots, max_pages, n_pages, page_size,
+                                  kv_heads, head_dim, n_q)
+    where = _anchor(AP.prolog_plan)
+    site = (f"prolog ps={page_size} KV={kv_heads} hd={head_dim} rep={rep} "
+            f"slots={n_slots} mp={max_pages} q={n_q}")
+    f: list[Finding] = []
+
+    def bad(msg):
+        f.append(Finding("kernelcheck", "KC110", *where, site, msg))
+        return f
+    row = kv_heads * head_dim
+    if plan.slab != page_size * row:
+        return bad(f"slab {plan.slab} != page_size x KV x head_dim")
+    if max(plan.grid_max, plan.grid_quant) > GRID_X or plan.slab >= 2 ** 31:
+        return bad(f"grids ({plan.grid_max}, {plan.grid_quant}) or slab "
+                   f"{plan.slab} exceed CUDA's limits")
+    if plan.chunk % (4 * AP.PROLOG_THREADS):
+        return bad(f"chunk {plan.chunk} is not a whole number of 4-element "
+                   f"steps of {AP.PROLOG_THREADS} threads")
+    pages_max = n_slots * max_pages * plan.slab_blocks
+    if plan.grid_max != pages_max + plan.q_blocks or \
+            plan.grid_quant != n_pages * plan.slab_blocks + plan.q_blocks:
+        return bad("grids do not hold the page blocks and the q blocks")
+    for live in sorted({0, 1, page_size // 2, page_size - 1, page_size}):
+        n = live * row
+        spans = [prolog_slab_span(plan, c, n)
+                 for c in range(plan.slab_blocks)]
+        if not _spans_cover(spans, n) or any(hi > n for _, hi in spans):
+            return bad(f"max launch blocks do not read the {live} live rows "
+                       f"once, or read past them")
+    if not _spans_cover([prolog_slab_span(plan, c, n_q)
+                         for c in range(plan.q_blocks)], n_q):
+        return bad("q blocks do not cover q once")
+    spans = [prolog_slab_span(plan, c, plan.slab)
+             for c in range(plan.slab_blocks)]
+    if not _spans_cover(spans, plan.slab):
+        return bad("quantise launch blocks do not cover a slab once")
+    if head_dim % 4 == 0 and any(lo % 4 for lo, _ in spans):
+        return bad("a 4-element step crosses a row")
+    page = n_pages - 1
+    base, size = page * row * rep * page_size, row * rep * page_size
+    probe = ([(i, t) for i in range(plan.slab) for t in range(rep)]
+             if plan.slab * rep <= 1 << 11 else
+             [(i, t) for lo, hi in spans for i in (lo, hi - 1)
+              for t in {0, rep - 1}])
+    at = [prolog_code_at(i, page, t, page_size, kv_heads, head_dim, rep)
+          for i, t in probe]
+    if any(not base <= a < base + size for a in at) or \
+            len(set(at)) != len(at) or (len(at) == size and
+                                        sorted(at)[-1] != base + size - 1):
+        return bad("code offsets leave the page's stripe rows or repeat")
+    return f
+
+
+def _catalog_attention_shapes() -> list:
+    """(KV heads, head dim, rep) of the catalog's attention models."""
+    from ..configs import get_config
+    from ..configs.catalog import PORTED
+    out = set()
+    for name in PORTED:
+        cfg = get_config(name)
+        if cfg.n_heads:
+            out.add((cfg.n_kv_heads, cfg.resolved_head_dim,
+                     cfg.n_heads // cfg.n_kv_heads))
+    return sorted(out)
+
+
+def check_prolog_plans(max_len: int = MAX_LEN) -> tuple[list, int]:
+    """KC110 over the serving domain: the catalog's shapes, flat (rep
+    copies) and GQA-native (one), every page size, 8 slots of ``max_len``
+    keys, a decode call and a 64-row chunk. (findings, plans checked)"""
+    f: list[Finding] = []
+    n = 0
+    for kv, hd, rep in _catalog_attention_shapes():
+        for ps in page_sizes(max_len):
+            mp = max_len // ps
+            for rows in {rep, 1}:
+                for sq in (1, 64):
+                    n += 1
+                    f += check_prolog_plan(8, mp, 1 + 8 * mp, ps, kv, hd,
+                                           8 * kv * rep * sq * hd, rows)
+    return f, n
+
+
+# ---------------------------------------------------------------------------
 # concrete serving-side probes: write fencing + allocator
 # ---------------------------------------------------------------------------
 
@@ -506,6 +637,8 @@ def check_allocator(allocator_cls=None) -> list[Finding]:
 def run(max_len: int = MAX_LEN) -> tuple[list[Finding], dict, str]:
     """(findings, coverage, kernel-contracts markdown)."""
     findings, cov, tally = check_serving_plans(max_len)
+    prolog, cov["prolog_plans"] = check_prolog_plans(max_len)
+    findings += prolog
     findings += check_write_fence()
     findings += check_allocator()
     return findings, cov, contracts_markdown(cov, tally)

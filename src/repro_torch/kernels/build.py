@@ -21,7 +21,7 @@ __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "SOURCES", "library", "bind",
 
 # every csrc/<name>.cu of the port
 SOURCES = ("acam_attention", "acam_attention_single", "acam_lut", "acam_mvm",
-           "acam_softmax")
+           "acam_prolog", "acam_softmax")
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"

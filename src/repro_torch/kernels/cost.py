@@ -27,7 +27,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 
-__all__ = ["Launch", "bound_ms", "total", "paged_attention",
+__all__ = ["Launch", "bound_ms", "total", "paged_attention", "paged_prolog",
            "contiguous_attention", "lut", "mvm", "softmax", "static_live",
            "static_pairs", "counted"]
 
@@ -91,6 +91,24 @@ def paged_attention(G: int, Sq: int, D: int, live: int, bt_numel: int,
                + mask_numel, 2 * Sq * live * D)
     b = Launch("acam_attention_paged", "B", live * D + 4 * G * Sq * D,
                2 * Sq * live * D)
+    return [a, b]
+
+
+def paged_prolog(n_q: int, n_slots: int, max_pages: int, n_pages: int,
+                 page_size: int, row: int, rep: int, itemsize: int) -> list:
+    """The paged entries' operand prolog (``csrc/acam_prolog.cu``): the max
+    launch reads float32 q, the live rows of the K and V pools (``row``
+    elements a row, ``itemsize`` bytes each), the block table and the
+    lengths; the quantise launch writes q's codes and the K/V codes of the
+    pages the table names, each KV head ``rep`` times. From the shapes:
+    every entry live on its own page, as many as the pool holds besides the
+    trash page, which the table names too."""
+    named = min(n_slots * max_pages, n_pages - 1)
+    a = Launch("acam_prolog", "A",
+               4 * n_q + 2 * named * page_size * row * itemsize
+               + 4 * n_slots * max_pages + 4 * n_slots, 0)
+    b = Launch("acam_prolog", "B",
+               n_q + 2 * (named + 1) * page_size * row * rep, 0)
     return [a, b]
 
 

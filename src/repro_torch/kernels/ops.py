@@ -8,20 +8,24 @@ linear layer through the crossbar MVM kernel, and `acam_softmax_kernel`
 reference, they run eagerly. The attention wrappers quantize float q
 (whole tensor) and k/v (whole tensor; the cache's valid prefix,
 `masked_prefix_quantize`, at decode; per page, with one scale over the
-union of live page entries, on a paged pool), run `acam_attention_codes`,
-and descale with the oracle's PROB requant scale. Every quantizer step
-follows the f32 op sequence of the reference's jitted graph. As in the
-reference, ``fold_scale=False`` (the default) divides the logits by
-sqrt(d) inside the kernel, and ``fold_scale=True`` takes q with 1/sqrt(d)
-folded in (the serving layers' call).
+union of live page entries, on a paged pool: the two launches of
+``csrc/acam_prolog.cu`` on the card, `paged_operands_plain` elsewhere),
+run `acam_attention_codes`, and descale with the oracle's PROB requant
+scale. Every quantizer step follows the f32 op sequence of the
+reference's jitted graph. As in the reference, ``fold_scale=False`` (the
+default) divides the logits by sqrt(d) inside the kernel, and
+``fold_scale=True`` takes q with 1/sqrt(d) folded in (the serving layers'
+call).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
 import torch
 
+from .. import trace
 from ..core import ops as acam_ops
 from ..core.crossbar import CrossbarConfig
 from ..core.quant import (QuantizedTensor, quantize_tensor, recip_scale,
@@ -29,6 +33,7 @@ from ..core.quant import (QuantizedTensor, quantize_tensor, recip_scale,
 from .acam_attention import (  # noqa: F401
     FUSED_SOFTMAX_MODES, acam_attention_codes, acam_attention_decode_codes,
     acam_attention_decode_gqa_codes, requant_scale)
+from . import acam_prolog, cost
 from .acam_lut import acam_lut, acam_lut_2d  # noqa: F401
 from .acam_mvm import acam_mvm  # noqa: F401
 from .acam_softmax import acam_softmax_codes, acam_softmax_kernel  # noqa: F401
@@ -39,7 +44,7 @@ __all__ = ["acam_activation", "raceit_linear", "acam_lut", "acam_lut_2d",
            "raceit_attention_decode_gqa", "prob_requant_scale", "prob_descale",
            "masked_prefix_quantize", "prefix_quantize_tensor",
            "page_valid_lengths", "masked_page_quantize",
-           "page_quantize_tensor", "expand_row_lens",
+           "page_quantize_tensor", "expand_row_lens", "paged_operands_plain",
            "raceit_attention_decode_paged",
            "raceit_attention_decode_gqa_paged", "tp_quantize_tensor",
            "tp_masked_prefix_quantize", "tp_masked_page_quantize",
@@ -174,7 +179,7 @@ def page_valid_lengths(block_table: torch.Tensor, kv_len: torch.Tensor,
     live = torch.clamp(kvl[:, None] - j * page_size, 0, page_size)
     pv = torch.zeros((n_pages,), dtype=torch.int32, device=bt.device)
     pv = pv.scatter_reduce(0, bt.reshape(-1), live.reshape(-1), reduce="amax")
-    pv[0] = 0
+    pv[:1].zero_()  # on the device: a host scalar written in would sync
     return pv
 
 
@@ -273,18 +278,65 @@ def raceit_attention_decode_gqa(
     return (out32.float() * prob_descale(cmax, vq)).reshape(B, H, Sq, D)
 
 
-def _paged_quantize_operands(q, k_pool, v_pool, block_table, kv_len):
-    """q whole-tensor int8; pooled k/v per-page int8 over live entries."""
-    pv = page_valid_lengths(block_table, kv_len, k_pool.shape[0],
-                            k_pool.shape[1])
-    return (quantize_tensor(q, bits=8), page_quantize_tensor(k_pool, pv),
-            page_quantize_tensor(v_pool, pv))
+def paged_operands_plain(q, k_pool, v_pool, block_table, kv_len, rep: int):
+    """The paged entries' operand prolog in torch ops, the reference's op
+    order: q whole-tensor int8 (codes (B, H, Sq, D), contiguous), the pool
+    read as float32 and quantized per page over its live entries
+    (`page_valid_lengths`, `page_quantize_tensor`), its codes in the stripe
+    row layout the paged kernels read, (n_pages * KV * rep, page_size, hd)
+    with each KV head repeated ``rep`` times. The plain version of
+    ``csrc/acam_prolog.cu`` (`repro_torch.kernels.acam_prolog`)."""
+    n_pages, ps, KV, hd = k_pool.shape
+    k_pool, v_pool = k_pool.float(), v_pool.float()
+    pv = page_valid_lengths(block_table, kv_len, n_pages, ps)
+    qq = quantize_tensor(q, bits=8)
+    kq = page_quantize_tensor(k_pool, pv)
+    vq = page_quantize_tensor(v_pool, pv)
+
+    def to_rows(c):
+        if rep > 1:
+            c = torch.repeat_interleave(c, rep, dim=2)
+        return c.transpose(1, 2).reshape(n_pages * KV * rep, ps, hd
+                                         ).contiguous()
+    return (dataclasses.replace(qq, codes=qq.codes.contiguous()),
+            dataclasses.replace(kq, codes=to_rows(kq.codes)),
+            dataclasses.replace(vq, codes=to_rows(vq.codes)))
+
+
+def _paged_operands(q, k_pool, v_pool, block_table, kv_len, rep: int):
+    """(qq, kq, vq) of a paged call, their codes in the kernels' layouts:
+    on the card the prolog's kernels (``attn.prolog_fused`` on the tracer,
+    by layer), on the CPU `paged_operands_plain` (``attn.prolog_plain``).
+    On ``meta`` the plain version gives the shapes and an op counter takes
+    the kernels' two launches, as on the card."""
+    dev = q.device.type
+    if trace.on:
+        trace.add("attn.prolog_fused" if dev == "cuda"
+                  else "attn.prolog_plain", 1, key=trace.current("layer"))
+    if dev == "cpu":
+        return paged_operands_plain(q, k_pool, v_pool, block_table, kv_len,
+                                    rep)
+    if dev not in ("cuda", "meta"):
+        raise ValueError(f"no implementation for device {q.device}")
+    n_pages, ps, KV, hd = k_pool.shape
+    itemsize = 2 if k_pool.dtype == v_pool.dtype == torch.bfloat16 else 4
+    with cost.counted(lambda: cost.paged_prolog(
+            q.numel(), block_table.shape[0], block_table.shape[1], n_pages,
+            ps, KV * hd, rep, itemsize)):
+        if dev == "meta":  # shapes only
+            return paged_operands_plain(q, k_pool, v_pool, block_table,
+                                        kv_len, rep)
+        qc, kc, vc, st = acam_prolog.launch_prolog(
+            q, k_pool, v_pool, block_table,
+            kv_len.to(torch.int32).contiguous(), rep)
+    return tuple(QuantizedTensor(c, st[3 + i], 8, st[i])
+                 for i, c in enumerate((qc, kc, vc)))
 
 
 def raceit_attention_decode_paged(
     q: torch.Tensor,       # (B, H, Sq, D) float — Sq=1 decode or Sq=C chunk
-    k_pool: torch.Tensor,  # (n_pages, page_size, KV, D) float
-    v_pool: torch.Tensor,  # (n_pages, page_size, KV, D) float
+    k_pool: torch.Tensor,  # (n_pages, page_size, KV, D), read as float32
+    v_pool: torch.Tensor,  # (n_pages, page_size, KV, D)
     kv_len: torch.Tensor,  # (B,) int32 per-slot fill levels
     block_table: torch.Tensor,  # (B, max_pages) int32; 0 = trash page
     mask: Optional[torch.Tensor] = None,  # (B, Sq, max_pages*page_size) bool
@@ -300,28 +352,20 @@ def raceit_attention_decode_paged(
     of its slot.
     """
     B, H, Sq, D = q.shape
-    n_pages, ps, KV, hd = k_pool.shape
-    rep = H // KV
-    qq, kq, vq = _paged_quantize_operands(q, k_pool, v_pool, block_table,
-                                          kv_len)
-
-    def to_rows(c):
-        if rep > 1:
-            c = torch.repeat_interleave(c, rep, dim=2)
-        return c.transpose(1, 2).reshape(n_pages * H, ps, hd).contiguous()
-
+    ps, KV = k_pool.shape[1], k_pool.shape[2]
+    bt = block_table.to(torch.int32).contiguous()
+    qq, kq, vq = _paged_operands(q, k_pool, v_pool, bt, kv_len, H // KV)
     out32, cmax = acam_attention_codes(
-        qq.codes.reshape(B * H, Sq, D).contiguous(), to_rows(kq.codes),
-        to_rows(vq.codes), scale_product(qq, kq), mask,
-        kv_len=expand_row_lens(kv_len, H), mode=softmax_mode,
-        block_table=block_table.to(torch.int32).contiguous(), page_size=ps,
-        groups_per_slot=H, scale_by_sqrt_d=_sqrt_d(D, fold_scale))
+        qq.codes.reshape(B * H, Sq, D), kq.codes, vq.codes,
+        scale_product(qq, kq), mask, kv_len=expand_row_lens(kv_len, H),
+        mode=softmax_mode, block_table=bt, page_size=ps, groups_per_slot=H,
+        scale_by_sqrt_d=_sqrt_d(D, fold_scale))
     return (out32.float() * prob_descale(cmax, vq)).reshape(B, H, Sq, D)
 
 
 def raceit_attention_decode_gqa_paged(
     q: torch.Tensor,       # (B, H, 1, D) float
-    k_pool: torch.Tensor,  # (n_pages, page_size, KV, D) float
+    k_pool: torch.Tensor,  # (n_pages, page_size, KV, D), read as float32
     v_pool: torch.Tensor,
     kv_len: torch.Tensor,  # (B,) int32
     block_table: torch.Tensor,  # (B, max_pages) int32
@@ -336,24 +380,21 @@ def raceit_attention_decode_gqa_paged(
     Same numbers as the flat entry on the same pool.
     """
     B, H, Sq, D = q.shape
-    n_pages, ps, KV, hd = k_pool.shape
+    ps, KV = k_pool.shape[1], k_pool.shape[2]
     if Sq != 1:
         raise ValueError(f"decode path expects Sq=1, got {Sq}")
     if H % KV:
         raise ValueError(f"n_heads={H} not a multiple of n_kv_heads={KV}")
     rep = H // KV
-    qq, kq, vq = _paged_quantize_operands(q, k_pool, v_pool, block_table,
-                                          kv_len)
-    to_rows = lambda c: c.transpose(1, 2).reshape(n_pages * KV, ps, hd
-                                                  ).contiguous()
+    bt = block_table.to(torch.int32).contiguous()
+    qq, kq, vq = _paged_operands(q, k_pool, v_pool, bt, kv_len, 1)
     if mask is not None:  # (B, 1, Sk) -> (B, rep, Sk): one per slot, as flat
         mask = mask.expand(B, rep, mask.shape[-1])
     out32, cmax = acam_attention_decode_gqa_codes(
-        qq.codes.reshape(B * KV, rep, D).contiguous(), to_rows(kq.codes),
-        to_rows(vq.codes), scale_product(qq, kq), expand_row_lens(kv_len, KV),
-        mask=mask, mode=softmax_mode,
-        block_table=block_table.to(torch.int32).contiguous(), page_size=ps,
-        groups_per_slot=KV, scale_by_sqrt_d=_sqrt_d(D, fold_scale))
+        qq.codes.reshape(B * KV, rep, D), kq.codes, vq.codes,
+        scale_product(qq, kq), expand_row_lens(kv_len, KV), mask=mask,
+        mode=softmax_mode, block_table=bt, page_size=ps, groups_per_slot=KV,
+        scale_by_sqrt_d=_sqrt_d(D, fold_scale))
     return (out32.float() * prob_descale(cmax, vq)).reshape(B, H, Sq, D)
 
 

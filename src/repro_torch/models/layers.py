@@ -372,9 +372,10 @@ def _raceit_paged_decode(q, k_pool, v_pool, kv_len, scale, plan: ExecPlan,
         mask = mask[:, None, :]
     fn = (raceit_attention_decode_gqa_paged if gqa and sq == 1
           else raceit_attention_decode_paged)
-    out = fn(qh, k_pool.float(), v_pool.float(), kv_len, block_table,
-             mask=mask, softmax_mode=plan.exec_cfg.softmax_mode,
-             fold_scale=True)
+    # the entries read the pool as float32 (a bfloat16 pool widens in the
+    # prolog's kernels, not in a pass over the whole pool here)
+    out = fn(qh, k_pool, v_pool, kv_len, block_table, mask=mask,
+             softmax_mode=plan.exec_cfg.softmax_mode, fold_scale=True)
     return out.transpose(1, 2)  # (B, Sq, H, hd)
 
 

@@ -36,8 +36,12 @@ admit, chunk or decode) in `serve.continuous`; ``engine.decode``,
 `exec.plan`; ``moe.route``, ``moe.experts``, ``moe.combine`` and the
 counters ``moe.kept`` (kept (token, choice) pairs per expert, a device
 int64 tensor) and ``moe.rows`` (the dispatch rows E x C), both keyed by
-layer, in `models.moe`; ``train.step`` (``step``) with ``train.forward``,
-``train.backward``, ``train.optimizer`` in `train.trainer`.
+layer, in `models.moe`; the counters ``attn.prolog_fused`` and
+``attn.prolog_plain`` (paged attention calls whose operand prolog ran as
+the kernels of ``csrc/acam_prolog.cu``, or as their plain version; host
+ints keyed by layer) in `kernels.ops`; ``train.step`` (``step``) with
+``train.forward``, ``train.backward``, ``train.optimizer`` in
+`train.trainer`.
 """
 from __future__ import annotations
 
