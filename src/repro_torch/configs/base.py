@@ -18,6 +18,13 @@ from typing import Optional
 __all__ = ["ModelConfig", "ExecConfig", "register", "get_config", "list_configs", "SHAPES", "ShapeSpec"]
 
 
+# fields of the port's own, with no twin in the reference; each default is
+# the reference's behaviour
+PORT_OWN = ("conv_bias", "ssm_skip_pads", "shared_d_ff",
+            "embedding_multiplier", "residual_multiplier", "logits_scaling",
+            "attention_multiplier", "norm_eps")
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
@@ -51,11 +58,24 @@ class ModelConfig:
     ssm_groups: int = 1
     conv_width: int = 4
     ssm_chunk: int = 256
+    conv_bias: bool = False                # a bias on each conv channel
+    # hold a bucket's left pads out of the mixer's state (dt = 0 and zeroed
+    # conv inputs at pad steps); off, the SSM scans through them as the
+    # reference's pool does
+    ssm_skip_pads: bool = False
+
+    # --- Granite's µP scalars and shared expert ---
+    shared_d_ff: int = 0                   # a SiLU-GLU shared expert's width
+    embedding_multiplier: float = 1.0      # the embedding times this
+    residual_multiplier: float = 1.0       # each branch times this
+    logits_scaling: float = 1.0            # the logits divided by this
+    attention_multiplier: Optional[float] = None  # None: 1/sqrt(head_dim)
 
     # --- misc ---
     activation: str = "silu"               # "silu" | "gelu"
     glu: bool = True                       # gated FFN (SwiGLU/GeGLU)
     norm: str = "rmsnorm"                  # "rmsnorm"|"layernorm"|"np_layernorm"
+    norm_eps: float = 1e-6                 # every norm's eps, the gated one too
     qkv_bias: bool = False
     pos_emb: str = "rope"                  # "rope"|"mrope"|"learned"|"sinusoidal"|"none"
     rope_theta: float = 1e6
@@ -107,6 +127,14 @@ class ModelConfig:
     @property
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_headdim
+
+    @property
+    def port_own(self) -> tuple:
+        """The port's own fields (no reference twin) this config sets away
+        from their defaults, which are the reference's behaviour."""
+        return tuple(f.name for f in dataclasses.fields(self)
+                     if f.name in PORT_OWN and getattr(self, f.name)
+                     != f.default)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

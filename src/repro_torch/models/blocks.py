@@ -13,9 +13,16 @@ reference stacks each period position's parameters along a scan dimension
 (`blocks.init_stack`); the port keeps a plain list of per-layer dicts in
 layer order (`repro_torch.ckpt` unstacks the reference's layout) and runs
 the layers in a Python loop in place of ``jax.lax.scan``. Mamba layers
-ignore ``positions``, ``pad_lens`` and ``slot_lens``, as in the reference:
-the SSM scans through left pads, and a slot's state is overwritten when the
-slot is re-admitted.
+ignore ``positions`` and ``slot_lens``, and ``pad_lens`` unless
+``cfg.ssm_skip_pads`` holds the pads out of their state (`ssm.mamba`); as in
+the reference, the SSM otherwise scans through left pads, and a slot's
+state is overwritten when the slot is re-admitted.
+
+Beyond the reference, a MoE layer of a config with ``shared_d_ff`` adds a
+dense SiLU-GLU shared expert (``p["shared"]``, resident like any dense FFN,
+span ``moe.shared``) to the routed experts' output, and
+``residual_multiplier`` scales each branch before it joins the residual
+stream; their defaults take the reference's path unchanged.
 """
 from __future__ import annotations
 
@@ -49,6 +56,17 @@ def _check_layer(cfg: ModelConfig, mixer: str, ffn_kind: str) -> None:
             f"Mamba-2 layers with dense, MoE or no FFN")
 
 
+def _shared_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The shared expert's dense FFN: the config at its own width."""
+    return cfg.replace(d_ff=cfg.shared_d_ff)
+
+
+def _branch(cfg: ModelConfig, y: torch.Tensor) -> torch.Tensor:
+    """A mixer's or FFN's output as it joins the residual stream."""
+    r = cfg.residual_multiplier
+    return y if r == 1.0 else y * r
+
+
 def init_layer(gen, cfg: ModelConfig, mixer: str, ffn_kind: str, device,
                dtype, cross: bool = False) -> Params:
     _check_layer(cfg, mixer, ffn_kind)
@@ -64,6 +82,9 @@ def init_layer(gen, cfg: ModelConfig, mixer: str, ffn_kind: str, device,
         p["norm2"] = layers.init_norm(cfg, device, dtype)
     if ffn_kind == "moe":
         p["moe"] = moe_mod.init_moe(gen, cfg, device, dtype)
+        if cfg.shared_d_ff:
+            p["shared"] = layers.init_ffn(gen, _shared_cfg(cfg), device,
+                                          dtype)
     elif ffn_kind == "dense":
         p["ffn"] = layers.init_ffn(gen, cfg, device, dtype)
     return p
@@ -87,7 +108,8 @@ def apply_layer(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
     if mixer == "mamba":
         kind = "mamba"
         m, new_cache = ssm.mamba(p["mamba"], h, cfg=cfg, plan=plan,
-                                 cache=cache["mamba"] if cache else None)
+                                 cache=cache["mamba"] if cache else None,
+                                 pad_lens=pad_lens)
     else:
         kind = "attn"
         m, new_cache = layers.attention(
@@ -97,7 +119,7 @@ def apply_layer(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
             pad_prompt_len=pad_prompt_len, slot_lens=slot_lens,
             block_table=block_table, page_size=page_size,
             chunk_offs=chunk_offs)
-    x = x + m
+    x = x + _branch(cfg, m)
     if "cross" in p and enc_kv is not None:
         cx, _ = layers.attention(p["cross"],
                                  layers.apply_norm(p["norm_x"], x, cfg),
@@ -105,11 +127,15 @@ def apply_layer(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
                                  cross_kv=enc_kv)
         x = x + cx
     if ffn_kind == "moe":
-        x = x + moe_mod.moe(p["moe"], layers.apply_norm(p["norm2"], x, cfg),
-                            cfg, plan)
+        h = layers.apply_norm(p["norm2"], x, cfg)
+        y = moe_mod.moe(p["moe"], h, cfg, plan)
+        if "shared" in p:
+            with trace.span("moe.shared"):
+                y = y + layers.ffn(p["shared"], h, _shared_cfg(cfg), plan)
+        x = x + _branch(cfg, y)
     elif ffn_kind == "dense":
-        x = x + layers.ffn(p["ffn"], layers.apply_norm(p["norm2"], x, cfg),
-                           cfg, plan)
+        x = x + _branch(cfg, layers.ffn(
+            p["ffn"], layers.apply_norm(p["norm2"], x, cfg), cfg, plan))
     return x, ({kind: new_cache} if new_cache is not None else None)
 
 
@@ -282,6 +308,10 @@ def apply_layer_tp(p: Params, xs: list, *, cfg: ModelConfig,
     row-parallel partials). ``cross``: each position's whole encoder
     output, for a decoder layer's cross attention."""
     _check_layer(cfg, mixer, ffn_kind)
+    if cfg.port_own:
+        raise NotImplementedError(
+            f"the model axis covers the reference's layers; "
+            f"{', '.join(cfg.port_own)} run on one device")
     plan = _mixer_plan(as_plan(cfg, plan), mixer)
     whole = (lambda parts: all_gather(parts, 1)) if sp else (lambda t: t)
 

@@ -84,11 +84,11 @@ def init_norm(cfg: ModelConfig, device, dtype) -> Params:
 def apply_norm(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     xf = x.float()
     if cfg.norm == "rmsnorm":
-        y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-6)
+        y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + cfg.norm_eps)
         return (y * p["scale"].float()).to(x.dtype)
     mu = xf.mean(-1, keepdim=True)
     var = ((xf - mu) ** 2).mean(-1, keepdim=True)
-    y = (xf - mu) * torch.rsqrt(var + 1e-6)
+    y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
     if cfg.norm == "layernorm":
         y = y * p["scale"].float() + p["bias"].float()
     return y.to(x.dtype)
@@ -569,6 +569,10 @@ def attention(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
     else:
         k, v = cross_kv  # encoder keys/values, precomputed
     scale = 1.0 / math.sqrt(hd)
+    if cfg.attention_multiplier is not None:
+        # the logits' scale folded into q before its whole-tensor
+        # quantization; the backends' 1/sqrt(d) then leaves the multiplier
+        q = q * (cfg.attention_multiplier * math.sqrt(hd))
 
     paged = block_table is not None
     if chunk_offs is not None and not paged:
@@ -743,9 +747,13 @@ def init_embeddings(gen, cfg: ModelConfig, device, dtype) -> Params:
 
 def embed(p: Params, tokens: torch.Tensor, positions: torch.Tensor,
           cfg: ModelConfig) -> torch.Tensor:
-    """Token embeddings plus learned or sinusoidal positions; RoPE and
-    M-RoPE positions act in attention instead."""
-    return _add_positions(p, p["tok_emb"][tokens.long()], positions, cfg)
+    """Token embeddings (times ``cfg.embedding_multiplier``) plus learned or
+    sinusoidal positions; RoPE and M-RoPE positions act in attention
+    instead."""
+    x = p["tok_emb"][tokens.long()]
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
+    return _add_positions(p, x, positions, cfg)
 
 
 def _add_positions(p: Params, x: torch.Tensor, positions: torch.Tensor,
@@ -765,10 +773,12 @@ def _add_positions(p: Params, x: torch.Tensor, positions: torch.Tensor,
 
 def unembed(p: Params, x: torch.Tensor, cfg: ModelConfig,
             plan: ExecPlan | ExecConfig) -> torch.Tensor:
-    """Logits through the plan's ``lm_head`` slot."""
+    """Logits through the plan's ``lm_head`` slot, divided by
+    ``cfg.logits_scaling``."""
     plan = as_plan(cfg, plan)
     w = p["tok_emb"].T if cfg.tie_embeddings else p["unembed"]
-    return plan.lm_head(x, w)
+    logits = plan.lm_head(x, w)
+    return logits if cfg.logits_scaling == 1.0 else logits / cfg.logits_scaling
 
 
 # --------------------------------------------------------------------------

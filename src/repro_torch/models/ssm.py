@@ -25,8 +25,14 @@ Step by step as the reference:
   intra-chunk lower-triangular mask is applied after the exp;
 * the three-operand contractions are taken pairwise, so no (b, c, l, h, p, n)
   intermediate is made (about 4.3 GB a layer at jamba's widths);
-* the gated RMSNorm before ``out_proj`` (`gated_norm`: eps 1e-6 and a float32
-  rsqrt) is a function of its own, so that tests can pin it to XLA's values.
+* the gated RMSNorm before ``out_proj`` (`gated_norm`: eps
+  ``cfg.norm_eps`` and a float32 rsqrt) is a function of its own, so that tests can pin it to XLA's values.
+
+Beyond the reference (`ModelConfig` fields whose defaults are its
+behaviour): ``conv_bias`` adds a bias to each conv channel, and
+``ssm_skip_pads`` holds a left-padded call's pads out of the state (`mamba`).
+Spans ``ssm.mixer`` and ``ssm.scan`` and the counter ``ssm.pad_rows`` (the
+pad steps held out, by layer) go to `repro_torch.trace`.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from .. import trace
 from ..configs.base import ExecConfig, ModelConfig
 from ..dist.tp import all_gather, all_reduce, send
 from ..exec.plan import ExecPlan, as_plan
@@ -73,6 +80,9 @@ def init_mamba(gen, cfg: ModelConfig, device, dtype) -> Params:
         taps = torch.zeros((W, width), device=device, dtype=dtype)
         taps[-1] = 1.0
         p[name] = taps
+        if cfg.conv_bias:
+            p[name + "_bias"] = torch.zeros((width,), device=device,
+                                            dtype=dtype)
     p["norm_scale"] = torch.ones((d_in,), device=device, dtype=dtype)
     return p
 
@@ -89,11 +99,11 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
 
 
-def gated_norm(y: torch.Tensor, z: torch.Tensor,
-               scale: torch.Tensor) -> torch.Tensor:
+def gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
     """Mamba-2's gated RMSNorm before ``out_proj``, in float32."""
     g = y.float() * F.silu(z.float())
-    g = g * torch.rsqrt((g * g).mean(-1, keepdim=True) + 1e-6)
+    g = g * torch.rsqrt((g * g).mean(-1, keepdim=True) + eps)
     return g * scale.float()
 
 
@@ -107,11 +117,12 @@ def gated_norm_split(ys: list, zs: list, scales: list, d_inner: int) -> list:
             for g, t, sc in zip(gs, sums, scales)]
 
 
-def _causal_conv_simple(x, w, state):
+def _causal_conv_simple(x, w, state, bias=None):
     """Depthwise causal conv via explicit shifted sums (W is tiny).
 
     x (B, S, C); w (W, C); state (B, W-1, C) holds the previous steps' inputs
-    (None: zeros). Returns y and the last W-1 inputs."""
+    (None: zeros); ``bias`` (C,) or None. Returns y and the last W-1
+    inputs."""
     W = w.shape[0]
     if state is None:
         ctx = F.pad(x, (0, 0, W - 1, 0))
@@ -120,6 +131,8 @@ def _causal_conv_simple(x, w, state):
     new_state = ctx[:, -(W - 1):, :] if W > 1 else None
     S = x.shape[1]
     y = sum(ctx[:, i:i + S, :] * w[i].to(x.dtype) for i in range(W))
+    if bias is not None:
+        y = y + bias.to(x.dtype)
     return y, new_state
 
 
@@ -210,10 +223,24 @@ def _ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, init_state=None):
     return y.reshape(Bsz, -1, H, Pd)[:, :S].to(xh.dtype), s
 
 
+def _pad_keep(pad_lens, S: int, device):
+    """(B, S) bool: the steps of a left-padded call that are real."""
+    return (torch.arange(S, device=device)[None, :]
+            >= pad_lens.to(device)[:, None])
+
+
 def mamba(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
           plan: ExecPlan | ExecConfig,
-          cache: Optional[Params] = None):
+          cache: Optional[Params] = None,
+          pad_lens: Optional[torch.Tensor] = None):
     """Mamba-2 mixer. cache = {"state", "conv_x", "conv_B", "conv_C"}.
+
+    ``pad_lens`` (B,): each row's left pads in a call of more than one
+    step. With ``cfg.ssm_skip_pads`` they are no part of the sequence: their
+    x, B and C are zeroed before the convolution (the first real step sees
+    a fresh conv window) and their dt is 0 (the state passes them
+    unchanged). Otherwise they are ignored, and the scan runs through the
+    pads as the reference's does.
 
     Returns (out (B, S, d_model), new cache or None).
     """
@@ -221,48 +248,65 @@ def mamba(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
     Bsz, S, _ = x.shape
     H, Pd, N, G = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_groups
 
-    z = layers._linear(x, p["w_z"], plan)
-    xs = layers._linear(x, p["w_x"], plan)
-    Bv = layers._linear(x, p["w_B"], plan)
-    Cv = layers._linear(x, p["w_C"], plan)
-    dt_raw = layers._linear(x, p["w_dt"], plan).float()
+    with trace.span("ssm.mixer"):
+        z = layers._linear(x, p["w_z"], plan)
+        xs = layers._linear(x, p["w_x"], plan)
+        Bv = layers._linear(x, p["w_B"], plan)
+        Cv = layers._linear(x, p["w_C"], plan)
+        dt_raw = layers._linear(x, p["w_dt"], plan).float()
 
-    xs, cs_x = _causal_conv_simple(xs, p["conv_x"],
-                                   cache["conv_x"] if cache else None)
-    Bv, cs_B = _causal_conv_simple(Bv, p["conv_B"],
-                                   cache["conv_B"] if cache else None)
-    Cv, cs_C = _causal_conv_simple(Cv, p["conv_C"],
-                                   cache["conv_C"] if cache else None)
-    xs, Bv, Cv = F.silu(xs), F.silu(Bv), F.silu(Cv)
+        keep = None
+        if cfg.ssm_skip_pads and pad_lens is not None and S > 1:
+            keep = _pad_keep(pad_lens, S, x.device)
+            k3 = keep[..., None].to(xs.dtype)
+            xs, Bv, Cv = xs * k3, Bv * k3, Cv * k3
+            if trace.on:
+                trace.add("ssm.pad_rows",
+                          (~keep).sum().to(torch.int64),
+                          key=trace.current("layer"))
 
-    xh = xs.reshape(Bsz, S, H, Pd)
-    Bm = Bv.reshape(Bsz, S, G, N)
-    Cm = Cv.reshape(Bsz, S, G, N)
-    dt = softplus(dt_raw + p["dt_bias"])  # (B,S,H)
-    A = -torch.exp(p["A_log"])  # (H,)
+        def conv(t, name):
+            return _causal_conv_simple(t, p[name],
+                                       cache[name] if cache else None,
+                                       p.get(name + "_bias"))
+        xs, cs_x = conv(xs, "conv_x")
+        Bv, cs_B = conv(Bv, "conv_B")
+        Cv, cs_C = conv(Cv, "conv_C")
+        xs, Bv, Cv = F.silu(xs), F.silu(Bv), F.silu(Cv)
 
-    if S == 1 and cache is not None:
-        # recurrent decode step
-        s_prev = cache["state"].float()  # (B,H,P,N)
-        dt1 = dt[:, 0]  # (B,H)
-        dA1 = torch.exp(dt1 * A)
-        B1 = Bm[:, 0].repeat_interleave(H // G, dim=1).float()  # (B,H,N)
-        C1 = Cm[:, 0].repeat_interleave(H // G, dim=1).float()
-        x1 = xh[:, 0].float()  # (B,H,P)
-        s_new = (s_prev * dA1[..., None, None]
-                 + (dt1[..., None] * x1)[..., None] * B1[:, :, None, :])
-        y = torch.einsum("bhn,bhpn->bhp", C1, s_new)
-        y = y[:, None].to(x.dtype)  # (B,1,H,P)
-        state = s_new
-    else:
-        init_state = cache["state"] if cache is not None else None
-        y, state = _ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk, init_state)
+        xh = xs.reshape(Bsz, S, H, Pd)
+        Bm = Bv.reshape(Bsz, S, G, N)
+        Cm = Cv.reshape(Bsz, S, G, N)
+        dt = softplus(dt_raw + p["dt_bias"])  # (B,S,H)
+        if keep is not None:
+            dt = dt * keep[..., None]
+        A = -torch.exp(p["A_log"])  # (H,)
 
-    y = y + xh * p["ssm_D"][:, None].to(x.dtype)
-    y = y.reshape(Bsz, S, cfg.d_inner)
-    y = gated_norm(y, z, p["norm_scale"]).to(x.dtype)
+        with trace.span("ssm.scan"):
+            if S == 1 and cache is not None:
+                # recurrent decode step
+                s_prev = cache["state"].float()  # (B,H,P,N)
+                dt1 = dt[:, 0]  # (B,H)
+                dA1 = torch.exp(dt1 * A)
+                B1 = Bm[:, 0].repeat_interleave(H // G, dim=1).float()
+                C1 = Cm[:, 0].repeat_interleave(H // G, dim=1).float()
+                x1 = xh[:, 0].float()  # (B,H,P)
+                s_new = (s_prev * dA1[..., None, None]
+                         + (dt1[..., None] * x1)[..., None]
+                         * B1[:, :, None, :])
+                y = torch.einsum("bhn,bhpn->bhp", C1, s_new)
+                y = y[:, None].to(x.dtype)  # (B,1,H,P)
+                state = s_new
+            else:
+                init_state = cache["state"] if cache is not None else None
+                y, state = _ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk,
+                                        init_state)
 
-    out = layers._linear(y, p["out_proj"], plan)
+        y = y + xh * p["ssm_D"][:, None].to(x.dtype)
+        y = y.reshape(Bsz, S, cfg.d_inner)
+        y = gated_norm(y, z, p["norm_scale"], cfg.norm_eps).to(x.dtype)
+
+        out = layers._linear(y, p["out_proj"], plan)
     new_cache = None
     if cache is not None:
         new_cache = {"state": state.to(cache["state"].dtype),

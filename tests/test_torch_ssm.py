@@ -107,7 +107,8 @@ _REF_GATED_NORM = jax.jit(_ref_gated_norm)
 
 @pytest.fixture
 def reference_gated_norm(monkeypatch):
-    def norm(y, z, scale):
+    def norm(y, z, scale, eps):
+        assert eps == 1e-6  # the reference's
         out = _REF_GATED_NORM(*(jnp.asarray(t.numpy()) for t in (y, z, scale)))
         return torch.from_numpy(np.array(out))
     monkeypatch.setattr(TS, "gated_norm", norm)

@@ -134,7 +134,8 @@ def reference_norms(monkeypatch):
                       jnp.asarray(x.numpy()), get_config(cfg.name))
         return torch.from_numpy(np.array(y))
 
-    def gated(y, z, scale):
+    def gated(y, z, scale, eps):
+        assert eps == 1e-6  # the reference's
         out = _ref_gated_norm(*(jnp.asarray(t.numpy()) for t in (y, z, scale)))
         return torch.from_numpy(np.array(out))
     monkeypatch.setattr(TL, "apply_norm", norm)
